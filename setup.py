@@ -32,7 +32,9 @@ setup(
                  "and multispectral mult-dwtgs plus the fs3dgs benchmark "
                  "harness"),
     packages=find_packages(include=["sparse_view_3dgs_pack_tpu",
-                                    "sparse_view_3dgs_pack_tpu.*"]),
+                                    "sparse_view_3dgs_pack_tpu.*",
+                                    "sparse_view_3dgs_pack_tpu_torch",
+                                    "sparse_view_3dgs_pack_tpu_torch.*"]),
     python_requires=">=3.10",
     ext_modules=[Extension(
         "fastio", [str(_NATIVE_SRC)],
