@@ -1,42 +1,91 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port's render path on one CUDA card.
+"""Smoke run of the PyTorch port's training and render paths on one CUDA
+card.
 
     python3 chip_smoke.py
 
-Phases, one line each, any failure exits non-zero:
-  1 device   the card's name and power limit (nvidia-smi)
-  2 build    nvcc-compiles csrc/raster_fwd.cu for sm_90a into build/kernels/
-  3 kernel   the kernel against its plain PyTorch version at 64x48 on the
-             rasterizer test scenes, both instantiations, both tile shapes
-  4 render   a 200k-Gaussian SH-degree-3 model (saved and re-loaded as PLY)
-             rendered from 20 orbit cameras at 1920x1080 through
-             renderer.render; frame 0 against the plain version; timings
-  5 cli      render + metrics CLIs on an 800x800 Blender-layout scene whose
-             ground truth is the plain version's render
-The line before the last is a JSON summary of the kernels; the last line is
-{"ok": true, "device": {...}}. Imports no jax.
+Phases, one line each or more, any failure exits non-zero:
+  1 device     the card's name and power limit (nvidia-smi)
+  2 build      nvcc-compiles csrc/raster_fwd.cu and csrc/raster_bwd.cu for
+               sm_90a, both at once, into build/kernels/; ptxas registers
+               and spills
+  3 kernel     the forward kernel against its plain PyTorch version at 64x48
+               on the rasterizer test scenes, both instantiations (n_contrib
+               and log T_final too), both tile shapes
+  4 bwd        the backward kernel (K3) and the per-Gaussian segment sum
+               against their plain versions on the same scenes at 16x16 and
+               32x16, per pair and per Gaussian; then one 800x800 training
+               render of the 100k-Gaussian training model; two kernel runs
+               on the same inputs bitwise equal
+  5 train      the `bench.py:126-155` configuration (800x800, 100k Gaussians
+               from create_from_pcd, SH 3, lgdwt losses, patch 128) through
+               `train_step`: 3 warm-up and 20 timed steps on a fixed view
+               (CUDA events), peak memory, the loss finite and decreasing;
+               then a torch.profiler run of 3 more steps: device busy share,
+               K3's time, and host and device time per stage of the port's
+               own record_function ranges
+  6 train_cli  `python -m sparse_view_3dgs_pack_tpu_torch.train --method
+               lgdwt` on a 400x400 Blender scene rendered from a known cloud,
+               densify and opacity reset within the run, then the port's
+               render and metrics CLIs: test PSNR at least 5 dB above the
+               starting model's, and the point count changed
+  7 render     a 200k-Gaussian SH-degree-3 model (saved and re-loaded as PLY)
+               rendered from 20 orbit cameras at 1920x1080 through
+               renderer.render; frame 0 against the plain version; timings
+  8 cli        render + metrics CLIs on an 800x800 Blender-layout scene whose
+               ground truth is the plain version's render
+Each path (train, render) is driven with the kernels' launch counts set to
+0 just before it and read just after; launches made to compare a kernel
+with its plain version are not counted. The line before the last is a JSON
+summary of the kernels, one entry per (kernel, path); the last line is
+{"ok": true, "device": {"platform": "gpu", ...}}.
+Imports no jax and nothing of the JAX package.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
 import time
 from argparse import Namespace
+from concurrent.futures import ThreadPoolExecutor
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-KERNEL_SOURCE = "sparse_view_3dgs_pack_tpu_torch/csrc/raster_fwd.cu"
-KERNEL_REPLACES = "sparse_view_3dgs_pack_tpu/ops/pallas/raster.py:151"
-SMALL_TOL = 1e-5     # phase 3: color/invdepth/alpha abs, depth relative
-FULL_TOL = 1e-4      # phase 4: ~1e3-pair sums taken in another order
+CSRC = "sparse_view_3dgs_pack_tpu_torch/csrc"
+KERNELS = {   # name → (source, the TPU kernel or JAX reduction it replaces)
+    "raster_fwd": (f"{CSRC}/raster_fwd.cu",
+                   "sparse_view_3dgs_pack_tpu/ops/pallas/raster.py:151"),
+    "raster_bwd": (f"{CSRC}/raster_bwd.cu",
+                   "sparse_view_3dgs_pack_tpu/ops/pallas/raster_bwd.py:83"),
+    "segment_sum": (f"{CSRC}/raster_bwd.cu",
+                    "sparse_view_3dgs_pack_tpu/ops/pallas/raster_vjp.py:131"),
+}
+SMALL_TOL = 1e-5     # phases 3-4 at 64x48: abs (depth, gradients: relative
+FULL_TOL = 1e-4      # to the largest); 1080p / 800p: sums in another order
+# at 800p a pixel whose log T lands within rounding of ln 1e-4 may stop one
+# pair earlier or later in the plain version's chunked sums: allow 1e-4 of
+# the pixels to differ in n_contrib (log T compared where it agrees)
+FLIP_FRACTION = 1e-4
 N_FRAMES = 20
 RENDER_W, RENDER_H, N_GAUSSIANS = 1920, 1080, 200_000
+TRAIN_W = TRAIN_H = 800
+TRAIN_N = 100_000
+WARMUP_STEPS, TIMED_STEPS = 3, 20
+CLI_W, CLI_ITERS, CLI_INIT_POINTS = 400, 600, 1000
+# H100 SXM published peaks: float32 outside the
+# tensor cores, and HBM3 bandwidth
+PEAK_F32_OPS = 67e12
+PEAK_BYTES = 3.35e12
+# the port's `record_function` ranges (renderer.render_core, train/step.py)
+STAGE_PREFIXES = ("render/", "step/")
 
 
 def log(phase: str, msg: str) -> None:
@@ -58,12 +107,61 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def bound(n_bytes: float, n_ops: float):
+    """(least ms, what sets it): bytes at the HBM rate or f32 operations at
+    the f32 peak, whichever takes longer."""
+    t_bytes = n_bytes / PEAK_BYTES * 1e3
+    t_ops = n_ops / PEAK_F32_OPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+# f32 operations per (pair, pixel) evaluation. A skipped one (power > 0 or
+# alpha < 1/255) costs the same in both kernels: offsets 2, quadratic form
+# 9, clamp/exp/opacity/clamp 4, the two skip tests 2.
+SKIP_OPS = 17
+
+
+def fwd_ops_per_contrib(C: int) -> int:
+    """The forward kernel per contributing (pair, pixel): offsets 2,
+    quadratic form 9, clamp/exp/opacity/clamp 4, log1p and its add 2, exp
+    of log T and the weight 2, payload FMAs 2(C+2). The pair that stops a
+    pixel costs SKIP_OPS + 3 (log1p, its add, the stop test)."""
+    return 2 + 9 + 4 + 2 + 2 + 2 * (C + 2)
+
+
+def bwd_ops_per_contrib(C: int) -> int:
+    """The backward kernel per contributing (pair, pixel): the forward's
+    alpha 15, log1p/sum 2, T 2, weight 1, <g, payload> 2(C+2), dL/dalpha 6,
+    suffix 2, payload gradients C+2, geometry gradients 19, and one add per
+    value of the reduction over pixels, C+8."""
+    return 15 + 2 + 2 + 1 + 2 * (C + 2) + 6 + 2 + (C + 2) + 19 + (C + 8)
+
+
 def max_errs(out, ref) -> dict:
     errs = {f: float((getattr(out, f) - getattr(ref, f)).abs().max())
             for f in ("color", "invdepth", "alpha")}
     scale = float(ref.depth.abs().max().clamp(min=1.0))
     errs["depth_rel"] = float((out.depth - ref.depth).abs().max()) / scale
+    if out.log_t is not None:
+        errs["log_t"] = float((out.log_t - ref.log_t).abs().max())
     return errs
+
+
+def _counters():
+    from sparse_view_3dgs_pack_tpu_torch.ops import raster
+    return {"raster_fwd": raster.rasterize_forward,
+            "raster_bwd": raster.rasterize_backward,
+            "segment_sum": raster.pairs_to_gaussians}
+
+
+def reset_counts() -> None:
+    for fn in _counters().values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {k: fn.launches for k, fn in _counters().items()}
 
 
 def phase_device() -> str:
@@ -82,22 +180,22 @@ def phase_device() -> str:
 
 
 def phase_build() -> None:
+    """Both sources through nvcc at once, one process each."""
     from sparse_view_3dgs_pack_tpu_torch.ops import _build
     t0 = time.perf_counter()
-    path, out = _build.build("raster_fwd")
-    _build.load("raster_fwd")
+    names = ("raster_fwd", "raster_bwd")
+    with ThreadPoolExecutor(len(names)) as pool:
+        built = dict(zip(names, pool.map(_build.build, names)))
     secs = time.perf_counter() - t0
-    regs = [int(w) for line in out.splitlines() if "registers" in line
-            for prev, w in zip(line.split(), line.split()[1:])
-            if prev == "Used"]
-    spills = sum(int(w) for line in out.splitlines()
-                 for w, b, sp in zip(line.split(), line.split()[1:],
-                                     line.split()[2:])
-                 if (b, sp) == ("bytes", "spill"))
-    log("build", f"{os.path.relpath(path, REPO)} in {secs:.1f} s"
-                 + (f"; ptxas: {len(regs)} instantiations, <= {max(regs)} "
-                    f"registers, {spills} spill bytes" if regs
-                    else " (already built)"))
+    for name, (path, out) in built.items():
+        _build.load(name)
+        regs = [int(m) for m in re.findall(r"Used (\d+) registers", out)]
+        spills = sum(int(m) for m in re.findall(r"(\d+) bytes spill", out))
+        log("build", f"{os.path.relpath(path, REPO)}"
+                     + (f"; ptxas: {len(regs)} kernels, registers "
+                        f"{min(regs)}-{max(regs)}, {spills} spill bytes"
+                        if regs else " (already built)"))
+    log("build", f"both sources in {secs:.1f} s")
 
 
 def _model(cloud):
@@ -115,9 +213,28 @@ def _raster_args(proj, ba, bg):
             ba.tile_counts, bg)
 
 
+def _project_model(model, cam, sh_degree=None):
+    from sparse_view_3dgs_pack_tpu_torch.ops.projection import \
+        project_gaussians
+    p = cam.params()
+    dev = model.xyz.device
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    with torch.no_grad():
+        return project_gaussians(
+            means3d=model.xyz, scales=torch.exp(model.scaling),
+            quats=model.rotation,
+            opacities=torch.sigmoid(model.opacity[:, 0]),
+            viewmat=t(p.viewmat), full_proj=t(p.full_proj),
+            cam_center=t(p.cam_center), tan_fovx=float(p.tan_fovx),
+            tan_fovy=float(p.tan_fovy), width=cam.width, height=cam.height,
+            sh=torch.cat([model.features_dc, model.features_rest], 1),
+            sh_degree=(model.max_sh_degree if sh_degree is None
+                       else sh_degree))
+
+
 def phase_kernels(device) -> float:
-    """Kernel vs plain version on the small scenes; returns the largest
-    error seen."""
+    """Forward kernel vs plain version on the small scenes; returns the
+    largest error seen."""
     from sparse_view_3dgs_pack_tpu_torch import testing
     from sparse_view_3dgs_pack_tpu_torch.ops.binning import bin_gaussians
     from sparse_view_3dgs_pack_tpu_torch.ops.raster import (
@@ -135,8 +252,7 @@ def phase_kernels(device) -> float:
             for n_contrib in (False, True):
                 out = rasterize_forward(*args, W, H, tx, ty, n_contrib)
                 ref = rasterize_forward_torch(*args, W, H, tx, ty, n_contrib)
-                if device.type == "cuda":
-                    torch.cuda.synchronize()
+                torch.cuda.synchronize()
                 errs = max_errs(out, ref)
                 msg = " ".join(f"{k}={v:.3g}" for k, v in errs.items())
                 if n_contrib:
@@ -157,8 +273,503 @@ def phase_kernels(device) -> float:
     return worst
 
 
+def _bwd_case(args, tol: float, label: str):
+    """K3 and the segment sum against their plain versions on one set of
+    backward inputs (`rasterize_backward` argument tuple): per-pair and
+    per-Gaussian errors relative to the largest plain value, and two kernel
+    runs bitwise equal. Returns (pair error, Gaussian error)."""
+    from sparse_view_3dgs_pack_tpu_torch.ops import raster
+    ids, P = args[5], args[0].shape[0]
+    out = raster.rasterize_backward(*args)
+    again = raster.rasterize_backward(*args)
+    ref = raster.rasterize_backward_torch(*args)
+    per = raster.pairs_to_gaussians(out, ids, P)
+    per_again = raster.pairs_to_gaussians(again, ids, P)
+    per_ref = raster.pairs_to_gaussians_torch(ref, ids, P)
+    torch.cuda.synchronize()
+    if not (torch.equal(out, again) and torch.equal(per, per_again)):
+        raise AssertionError(f"{label}: two backward runs differ")
+    pair_err = float((out - ref).abs().max() / ref.abs().max())
+    g_err = float((per - per_ref).abs().max() / per_ref.abs().max())
+    log("bwd", f"{label} pairs={ids.shape[0]} per-pair err {pair_err:.3g}, "
+               f"per-Gaussian err {g_err:.3g} (relative to the largest); "
+               f"two runs bitwise equal")
+    if not (pair_err <= tol and g_err <= tol):
+        raise AssertionError(f"{label}: backward vs plain {pair_err:.3g}, "
+                             f"{g_err:.3g} > {tol}")
+    return pair_err, g_err
+
+
+def _bwd_args(proj, ba, bg, W, H, tx, ty, seed=0):
+    """Backward inputs: the kernel forward's saved log T / n_contrib and
+    seeded normal image cotangents."""
+    from sparse_view_3dgs_pack_tpu_torch.ops.raster import rasterize_forward
+    args = _raster_args(proj, ba, bg)
+    fwd = rasterize_forward(*args, W, H, tx, ty, True)
+    gen = torch.Generator(device=bg.device).manual_seed(seed)
+    g = [torch.randn(s, generator=gen, device=bg.device)
+         for s in ((H, W, 3), (H, W), (H, W), (H, W))]
+    return args + (fwd.log_t, fwd.n_contrib, *g, W, H, tx, ty), fwd
+
+
+def phase_bwd_small(device) -> float:
+    from sparse_view_3dgs_pack_tpu_torch import testing
+    from sparse_view_3dgs_pack_tpu_torch.ops.binning import bin_gaussians
+    W, H = testing.RASTER_W, testing.RASTER_H
+    bg = torch.tensor([0.05, 0.1, 0.15], device=device)
+    worst = 0.0
+    for name in testing.RASTER_SCENES:
+        cloud, cam = testing.raster_scene(name)
+        proj = _project_model(_model(cloud).to(device), cam)
+        for tx, ty in ((16, 16), (32, 16)):
+            ba = bin_gaussians(proj.means2d, proj.depths, proj.radii, W, H,
+                               tx, ty)
+            args, _ = _bwd_args(proj, ba, bg, W, H, tx, ty)
+            worst = max(worst, *_bwd_case(args, SMALL_TOL,
+                                          f"{name} {tx}x{ty}"))
+    return worst
+
+
+def _train_setup(device):
+    """The `bench.py:126-155` training configuration."""
+    from sparse_view_3dgs_pack_tpu_torch import testing
+    from sparse_view_3dgs_pack_tpu_torch.models import gaussians as gm
+    from sparse_view_3dgs_pack_tpu_torch.train import step
+    rng = np.random.default_rng(0)
+    pts = rng.uniform(-2, 2, (TRAIN_N, 3)).astype(np.float32)
+    cols = rng.random((TRAIN_N, 3)).astype(np.float32)
+    t0 = time.perf_counter()
+    model = gm.create_from_pcd(pts, cols, n_images=4, sh_degree=3,
+                               device=device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    cams = testing.make_orbit_cameras(4, radius=6.0, width=TRAIN_W,
+                                      height_px=TRAIN_H)
+    for c in cams:
+        c.image = rng.random((TRAIN_H, TRAIN_W, 3)).astype(np.float32)
+        c.alpha_mask = np.ones((TRAIN_H, TRAIN_W), np.float32)
+    bank = step.CameraBank.from_cameras(cams, 3, device)
+    cfg = step.StepConfig(width=TRAIN_W, height=TRAIN_H, sh_degree=3,
+                          dwt_enable=True, patch_dwt_enable=True,
+                          patch_size=128)
+    return model, cams, bank, cfg, init_s
+
+
+class Work(NamedTuple):
+    """What this run's data asks of the rasterizer kernels, in (pair, pixel)
+    evaluations: both replay each pixel's pairs before its stop (n_contrib
+    of them), the forward also evaluates the pair that stops it."""
+    before_stop: int   # sum of n_contrib
+    skipped: int       # of those, skipped: power > 0 or alpha < 1/255
+    stops: int         # pixels that stop before their tile's last pair
+
+    def fwd_ops(self, C: int) -> int:
+        return ((self.before_stop - self.skipped) * fwd_ops_per_contrib(C)
+                + self.skipped * SKIP_OPS + self.stops * (SKIP_OPS + 3))
+
+    def bwd_ops(self, C: int) -> int:
+        return ((self.before_stop - self.skipped) * bwd_ops_per_contrib(C)
+                + self.skipped * SKIP_OPS)
+
+
+def _work(proj, ba, n_contrib, W, H, tx, ty) -> Work:
+    """Counts each pixel's evaluations before its stop and, with the
+    kernels' own expression and test, the skipped ones among them (tiles
+    in batches, pairs in chunks, on the card)."""
+    from sparse_view_3dgs_pack_tpu_torch.ops.binning import tile_grid
+    from sparse_view_3dgs_pack_tpu_torch.ops.blending import (ALPHA_EPS,
+                                                              ALPHA_MAX)
+    dev = n_contrib.device
+    gx, gy = tile_grid(W, H, tx, ty)
+    pix = tx * ty
+    nc = n_contrib.to(torch.int64)
+    counts = ba.tile_counts.to(torch.int64)
+    ys = torch.arange(H, device=dev) // ty
+    xs = torch.arange(W, device=dev) // tx
+    per_pix = counts[ys[:, None] * gx + xs[None, :]]
+    stops = int((nc < per_pix).sum())
+    nc_t = torch.nn.functional.pad(nc, (0, gx * tx - W, 0, gy * ty - H))
+    nc_t = nc_t.reshape(gy, ty, gx, tx).permute(0, 2, 1, 3).reshape(-1, pix)
+    lin = torch.arange(pix, device=dev)
+    lx, ly = (lin % tx).to(torch.float32), (lin // tx).to(torch.float32)
+    deepest = nc_t.max(1).values
+    order = torch.argsort(deepest, descending=True)
+    depth_sorted = deepest[order].tolist()
+    chunk = 256
+    tb = max(1, (1 << 24) // (pix * chunk))
+    skipped = 0
+    for b0 in range(0, order.shape[0], tb):
+        kmax = depth_sorted[b0]
+        if kmax == 0:
+            break
+        tsel = order[b0:b0 + tb]
+        px = ((tsel % gx) * tx).to(torch.float32)[:, None] + lx
+        py = ((tsel // gx) * ty).to(torch.float32)[:, None] + ly
+        nc_b, st = nc_t[tsel], ba.tile_starts.to(torch.int64)[tsel]
+        for k0 in range(0, kmax, chunk):
+            k = torch.arange(k0, min(k0 + chunk, kmax), device=dev)
+            slot = torch.clamp(st[:, None] + k[None, :],
+                               max=ba.ids.shape[0] - 1)
+            g = ba.ids[slot].to(torch.int64)
+            m, con = proj.means2d[g], proj.conics[g]
+            dx = px[:, :, None] - m[:, None, :, 0]
+            dy = py[:, :, None] - m[:, None, :, 1]
+            power = -0.5 * (con[:, None, :, 0] * dx * dx
+                            + con[:, None, :, 2] * dy * dy) \
+                - con[:, None, :, 1] * dx * dy
+            alpha = torch.clamp(proj.opacities[g][:, None, :] * torch.exp(
+                torch.clamp(power, max=0.0)), max=ALPHA_MAX)
+            before = k[None, None, :] < nc_b[:, :, None]
+            skipped += int((before & ((power > 0.0) | (alpha < ALPHA_EPS)))
+                           .sum())
+    return Work(int(nc.sum()), skipped, stops)
+
+
+def _stop_f64(proj, ba, pixels, W, tx, ty) -> list:
+    """n_contrib of each (y, x) in `pixels` with its tile's pairs replayed
+    in float64: the same expression, skips and sticky stop."""
+    from sparse_view_3dgs_pack_tpu_torch.ops.blending import (
+        ALPHA_EPS, ALPHA_MAX, LOG_T_EPS)
+    gx = (W + tx - 1) // tx
+    out = []
+    for y, x in pixels.tolist():
+        t = (y // ty) * gx + x // tx
+        s, c = int(ba.tile_starts[t]), int(ba.tile_counts[t])
+        g = ba.ids[s:s + c].to(torch.int64)
+        m = proj.means2d[g].double()
+        a, b, cc = proj.conics[g].double().unbind(1)
+        dx, dy = x - m[:, 0], y - m[:, 1]
+        power = -0.5 * (a * dx * dx + cc * dy * dy) - b * dx * dy
+        alpha = torch.clamp(proj.opacities[g].double() * torch.exp(
+            torch.clamp(power, max=0.0)), max=ALPHA_MAX)
+        alpha = torch.where((power > 0.0) | (alpha < ALPHA_EPS),
+                            torch.zeros_like(alpha), alpha)
+        crossed = torch.nonzero(torch.cumsum(torch.log1p(-alpha), 0)
+                                < LOG_T_EPS)
+        out.append(int(crossed[0]) if crossed.numel() else c)
+    return out
+
+
+def _fwd_bound(P, C, n_pairs, num_tiles, W, H, work: Work, training: bool):
+    n_bytes = (P * (2 + 1 + 3 + C + 1) + n_pairs + 2 * num_tiles + C) * 4 \
+        + W * H * (C + 3 + (2 if training else 0)) * 4
+    return bound(n_bytes, work.fwd_ops(C))
+
+
+def _bwd_bound(P, C, n_pairs, num_tiles, W, H, work: Work):
+    n_bytes = ((P * (2 + 1 + 3 + C + 1) + n_pairs + 2 * num_tiles + C) * 4
+               + W * H * (C + 5) * 4 + n_pairs * (C + 8) * 4)
+    return bound(n_bytes, work.bwd_ops(C))
+
+
+def _segsum_bound(P, K, n_pairs):
+    n_bytes = n_pairs * (K + 1) * 4 + (P + 1) * 4 + P * K * 4
+    return bound(n_bytes, n_pairs * K)
+
+
+def phase_bwd_full(model, cams, device) -> dict:
+    """The 800x800 training render of the training model, kernels against
+    plain versions; also their times and bounds at that shape."""
+    from sparse_view_3dgs_pack_tpu_torch.ops import raster
+    from sparse_view_3dgs_pack_tpu_torch.ops.binning import bin_gaussians
+    from sparse_view_3dgs_pack_tpu_torch.renderer import (TRAIN_TILE_X,
+                                                          TRAIN_TILE_Y)
+    W, H, tx, ty = TRAIN_W, TRAIN_H, TRAIN_TILE_X, TRAIN_TILE_Y
+    proj = _project_model(model, cams[0], sh_degree=3)
+    ba = bin_gaussians(proj.means2d, proj.depths, proj.rect_radii, W, H,
+                       tx, ty)
+    bg = torch.zeros(3, device=device)
+    args, fwd = _bwd_args(proj, ba, bg, W, H, tx, ty, seed=1)
+    fargs = _raster_args(proj, ba, bg) + (W, H, tx, ty, True)
+    ref = raster.rasterize_forward_torch(*fargs)
+    torch.cuda.synchronize()
+    same = fwd.n_contrib == ref.n_contrib
+    nc_diff = int((~same).sum())
+    errs = max_errs(fwd, ref._replace(log_t=torch.where(same, ref.log_t,
+                                                        fwd.log_t)))
+    log("bwd", f"{W}x{H} training forward, {ba.total_pairs} pairs: kernel vs "
+               f"plain " + " ".join(f"{k}={v:.3g}" for k, v in errs.items())
+        + f" (log_t where n_contrib agrees) n_contrib_diff={nc_diff} of "
+          f"{W * H} pixels")
+    if nc_diff > FLIP_FRACTION * W * H or not all(
+            v <= FULL_TOL for v in errs.values()):
+        raise AssertionError(f"800p training forward: {errs}, n_contrib "
+                             f"differs at {nc_diff} pixels")
+    if nc_diff:
+        # which side stops where exact arithmetic would: float64 replay
+        flips = torch.nonzero(~same)
+        n64 = torch.tensor(_stop_f64(proj, ba, flips, W, tx, ty),
+                           device=device)
+        at = (flips[:, 0], flips[:, 1])
+        log("bwd", f"at the {nc_diff} pixels where n_contrib differs, a "
+                   f"float64 replay stops with the kernel at "
+                   f"{int((fwd.n_contrib[at] == n64).sum())}, with the plain "
+                   f"version at {int((ref.n_contrib[at] == n64).sum())}")
+    pair_err, g_err = _bwd_case(args, FULL_TOL, f"{W}x{H} training render")
+
+    P, C, n_pairs = proj.means2d.shape[0], 3, ba.total_pairs
+    num_tiles = ba.tile_counts.shape[0]
+    K = C + 8
+    ids = ba.ids
+    pairs = raster.rasterize_backward(*args)
+    t_fwd = cuda_ms(lambda: raster.rasterize_forward(*fargs), 20)
+    t_fwd_plain = cuda_ms(lambda: raster.rasterize_forward_torch(*fargs), 2)
+    t_bwd = cuda_ms(lambda: raster.rasterize_backward(*args), 20)
+    t_bwd_plain = cuda_ms(lambda: raster.rasterize_backward_torch(*args), 2)
+    t_seg = cuda_ms(lambda: raster.pairs_to_gaussians(pairs, ids, P), 20)
+    t_seg_plain = cuda_ms(lambda: raster.pairs_to_gaussians_torch(
+        pairs, ids, P), 5)
+    ids64 = ids.to(torch.int64)
+    t_seg_lib = cuda_ms(lambda: torch.zeros((P, K), device=device)
+                        .index_add_(0, ids64, pairs), 20)
+    work = _work(proj, ba, fwd.n_contrib, W, H, tx, ty)
+    fb = _fwd_bound(P, C, n_pairs, num_tiles, W, H, work, True)
+    bb = _bwd_bound(P, C, n_pairs, num_tiles, W, H, work)
+    sb = _segsum_bound(P, K, n_pairs)
+    log("bwd", f"{W}x{H} work: {work.before_stop} (pair, pixel) evaluations "
+               f"before the stops, {work.skipped} of them skipped "
+               f"({100 * work.skipped / work.before_stop:.1f}%), "
+               f"{work.stops} pixels stop early")
+    log("bwd", f"{W}x{H} training shape: raster_fwd {t_fwd:.3f} ms (plain "
+               f"{t_fwd_plain:.1f}, bound {fb[0]:.4f} by {fb[1]}); "
+               f"raster_bwd {t_bwd:.3f} ms (plain {t_bwd_plain:.1f}, bound "
+               f"{bb[0]:.4f} by {bb[1]}); segment_sum {t_seg:.3f} ms (plain "
+               f"{t_seg_plain:.3f}, index_add_ {t_seg_lib:.3f}, bound "
+               f"{sb[0]:.4f} by {sb[1]})")
+    return {
+        "raster_fwd": dict(max_abs_err=max(errs["color"], errs["alpha"],
+                                           errs["invdepth"]),
+                           ms=t_fwd, plain_ms=t_fwd_plain, bound_ms=fb[0],
+                           bound_by=fb[1], library_ms=None),
+        "raster_bwd": dict(max_abs_err=pair_err, ms=t_bwd,
+                           plain_ms=t_bwd_plain, bound_ms=bb[0],
+                           bound_by=bb[1], library_ms=None),
+        "segment_sum": dict(max_abs_err=g_err, ms=t_seg,
+                            plain_ms=t_seg_plain, bound_ms=sb[0],
+                            bound_by=sb[1], library_ms=t_seg_lib)}
+
+
+def _stages(events, dev, n: int) -> dict:
+    """stage → [host ms, device ms] per call. A stage is a
+    `record_function` range of the port (`STAGE_PREFIXES`); each kernel's
+    device time goes to the innermost range around the host call that
+    launched it (the CUDA runtime call of the same correlation id).
+    Kernels launched outside every range go to "other"."""
+    from torch.autograd import DeviceType
+    cpu = [e for e in events if e.device_type == DeviceType.CPU]
+    ranges = [(e.time_range.start, e.time_range.end, e.name) for e in cpu
+              if e.name.startswith(STAGE_PREFIXES)]
+    runtime = {e.id: e.time_range.start for e in cpu
+               if e.name.startswith("cu")}
+    out = {name: [0.0, 0.0] for _, _, name in sorted(ranges)}
+    out["other"] = [0.0, 0.0]
+    for s, e, name in ranges:
+        out[name][0] += (e - s) / 1e3 / n
+    for k in dev:
+        t = runtime.get(k.id)
+        inner = max(((s, name) for s, e, name in ranges
+                     if t is not None and s <= t <= e), default=None)
+        out[inner[1] if inner else "other"][1] += (
+            k.time_range.end - k.time_range.start) / 1e3 / n
+    return out
+
+
+def _profile(fn, n: int) -> dict:
+    """Device busy time, ops, top kernels and the stage breakdown per call
+    of `fn` over `n` calls, from torch.profiler's CUDA activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / n
+    events = list(prof.events())
+    # the ranges' own device-side spans are not work
+    dev = [e for e in events if e.device_type == DeviceType.CUDA
+           and not e.name.startswith(STAGE_PREFIXES)]
+    if not dev:
+        return {}
+    spans = sorted((e.time_range.start, e.time_range.end) for e in dev)
+    busy, cur_s, cur_e = 0.0, *spans[0]
+    for s, e in spans[1:]:
+        if s > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    busy = (busy + cur_e - cur_s) / 1e3 / n
+    by_name: dict[str, float] = {}
+    for e in dev:
+        by_name[e.name] = by_name.get(e.name, 0.0) + (
+            e.time_range.end - e.time_range.start) / 1e3 / n
+    return {"busy_ms": busy, "wall_ms": wall, "ops": len(dev) / n,
+            "by_name": by_name, "stages": _stages(events, dev, n)}
+
+
+def _profile_line(prof: dict, what: str) -> str:
+    if not prof:
+        return "profile: no device activity recorded (not measured)"
+    top = sorted(prof["by_name"].items(), key=lambda kv: -kv[1])[:4]
+    return (f"profile over {what}: device busy {prof['busy_ms']:.3f} ms of "
+            f"{prof['wall_ms']:.3f} ms per call "
+            f"({100 * (1 - prof['busy_ms'] / prof['wall_ms']):.1f}% idle), "
+            f"{prof['ops']:.0f} device ops per call; top: "
+            + "; ".join(f"{n[:40]} {t:.3f} ms" for n, t in top)
+            + "\n  stages (host ms / device ms per call): "
+            + ", ".join(f"{k} {h:.3f} / {d:.3f}"
+                        for k, (h, d) in prof["stages"].items()))
+
+
+def phase_train(device) -> dict:
+    """The main path of the training slice: `train_step` at full width."""
+    from sparse_view_3dgs_pack_tpu_torch.train import optim, step
+    model, cams, bank, cfg, init_s = _train_setup(device)
+    log("train", f"create_from_pcd of {TRAIN_N} points on the card (exact "
+                 f"3-NN) in {init_s:.2f} s")
+    kernels = phase_bwd_full(model, cams, device)
+    adam = optim.init_adam(model.params())
+    eadam = optim.init_exposure_adam(model.exposure)
+    running = torch.ones((), device=device)
+    lrs = {k: 1e-3 for k in model.params()}
+    bg = torch.zeros(3, device=device)
+
+    def one():
+        nonlocal running
+        metrics, running = step.train_step(model, adam, eadam, running, bank,
+                                           0, lrs, 0.0, 0.0, 3, bg, cfg)
+        return metrics
+
+    for _ in range(WARMUP_STEPS):
+        one()
+    torch.cuda.synchronize()
+
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    ev_ms, host_ms, losses, pairs = [], [], [], []
+    for _ in range(TIMED_STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        metrics = one()
+        end.record()
+        torch.cuda.synchronize()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        ev_ms.append(start.elapsed_time(end))
+        losses.append(float(metrics["loss"]))
+        pairs.append(metrics["n_pairs"])
+    counts = read_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    med = float(np.median(ev_ms))
+    log("train", f"{TIMED_STEPS} steps {TRAIN_W}x{TRAIN_H}, {TRAIN_N} "
+                 f"Gaussians SH3, lgdwt: median {med:.3f} ms per step "
+                 f"({1e3 / med:.2f} it/s; host clock median "
+                 f"{float(np.median(host_ms)):.3f} ms; min {min(ev_ms):.3f}, "
+                 f"max {max(ev_ms):.3f}); pairs median "
+                 f"{int(np.median(pairs))}; peak {peak_gib:.3f} GiB; "
+                 f"launches {counts}")
+    for name, n in counts.items():
+        if n != TIMED_STEPS:
+            raise AssertionError(f"{name} launched {n} times in "
+                                 f"{TIMED_STEPS} train steps")
+    log("train", "loss over the timed steps (fixed view): "
+                 + " ".join(f"{v:.5f}" for v in losses))
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"loss not finite and decreasing: {losses}")
+
+    prof = _profile(one, 3)
+    log("train", _profile_line(prof, "3 train steps"))
+    if prof:
+        k3 = sum(t for n, t in prof["by_name"].items() if "raster_bwd" in n)
+        seg = sum(t for n, t in prof["by_name"].items()
+                  if "segment_sum" in n)
+        log("train", f"of step/backward's device time, raster_bwd_kernel "
+                     f"{k3:.3f} ms and segment_sum_kernel {seg:.3f} ms per "
+                     f"step; K3 = {100 * k3 / prof['busy_ms']:.1f}% of device "
+                     f"busy time")
+    for name in kernels:
+        kernels[name]["launches"] = counts[name]
+    return kernels
+
+
+def phase_train_cli(work: str, device) -> None:
+    """The training CLI on a Blender scene rendered from a known cloud, then
+    the render and metrics CLIs on its output."""
+    from sparse_view_3dgs_pack_tpu_torch import testing
+    from sparse_view_3dgs_pack_tpu_torch.data import readers
+    from sparse_view_3dgs_pack_tpu_torch.data.camera_utils import \
+        camera_list_from_cam_infos
+    from sparse_view_3dgs_pack_tpu_torch.data.ply import (fetch_point_cloud,
+                                                          read_ply)
+    from sparse_view_3dgs_pack_tpu_torch.models import gaussians as gm
+    from sparse_view_3dgs_pack_tpu_torch.train.loop import evaluate_cameras
+    t0 = time.perf_counter()
+    cloud = testing.make_gaussian_cloud(11, 2000, extent=1.2,
+                                        scale_range=(0.04, 0.15))
+    scene = testing.write_blender_scene(
+        os.path.join(work, "train_scene"), n_train=8, n_test=2, width=CLI_W,
+        cloud=cloud, device=device, init_points=CLI_INIT_POINTS)
+    # test PSNR of the model the trainer starts from (iteration 0)
+    info = readers.read_nerf_synthetic_scene(scene, False, "", True)
+    test_cams = camera_list_from_cam_infos(
+        info.test_cameras, 1.0, Namespace(resolution=-1), True, True)
+    pcd = fetch_point_cloud(os.path.join(scene, "points3d.ply"))
+    start = gm.create_from_pcd(pcd.points, pcd.colors, n_images=8,
+                               sh_degree=3, device=device)
+    psnr0 = evaluate_cameras(start, test_cams, [0.0, 0.0, 0.0], 0)["psnr"]
+    log("train_cli", f"scene {CLI_W}x{CLI_W}, 8 train + 2 test views of a "
+                     f"2000-Gaussian cloud, {CLI_INIT_POINTS} start points, "
+                     f"in {time.perf_counter() - t0:.1f} s; test PSNR at "
+                     f"iteration 0: {psnr0:.3f} dB")
+    out = os.path.join(work, "train_out")
+    cmd = [sys.executable, "-m", "sparse_view_3dgs_pack_tpu_torch.train",
+           "-s", scene, "-m", out, "--method", "lgdwt", "--disable_viewer",
+           "--eval", "--iterations", str(CLI_ITERS),
+           "--densify_from_iter", "100", "--densification_interval", "50",
+           "--densify_until_iter", "450", "--opacity_reset_interval", "250",
+           "--test_iterations", "250", str(CLI_ITERS)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise AssertionError(f"train CLI failed (rc={proc.returncode}):\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    for line in proc.stdout.splitlines():
+        if "Evaluating" in line or "Training took" in line:
+            log("train_cli", line.strip())
+    log("train_cli", f"python -m sparse_view_3dgs_pack_tpu_torch.train ok "
+                     f"in {time.perf_counter() - t0:.1f} s")
+    for mod, extra in (("render", ["--skip_train"]), ("metrics", [])):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", f"sparse_view_3dgs_pack_tpu_torch.{mod}",
+             "-m", out, *extra], cwd=REPO, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise AssertionError(f"{mod} CLI failed (rc={proc.returncode}):"
+                                 f"\n{proc.stdout}\n{proc.stderr}")
+        log("train_cli", f"{mod} CLI ok in {time.perf_counter() - t0:.1f} s")
+    with open(os.path.join(out, "results.json")) as f:
+        res = json.load(f)[f"ours_{CLI_ITERS}"]
+    n_end = len(read_ply(os.path.join(out, "point_cloud",
+                                      f"iteration_{CLI_ITERS}",
+                                      "point_cloud.ply"))["x"])
+    log("train_cli", f"test PSNR {psnr0:.3f} dB at iteration 0 -> "
+                     f"{res['PSNR']:.3f} dB at {CLI_ITERS} (SSIM "
+                     f"{res['SSIM']:.4f}); Gaussians {CLI_INIT_POINTS} -> "
+                     f"{n_end}")
+    if not res["PSNR"] >= psnr0 + 5.0:
+        raise AssertionError(f"test PSNR rose by {res['PSNR'] - psnr0:.3f} "
+                             f"dB, less than 5")
+    if n_end == CLI_INIT_POINTS:
+        raise AssertionError("the point count did not change")
+
+
 def phase_render(device, work: str):
-    """The main path at full size. Returns (ply path, kernel summary)."""
+    """The render path at full size. Returns the PLY path and the render
+    path's kernel entries."""
     from sparse_view_3dgs_pack_tpu_torch import testing
     from sparse_view_3dgs_pack_tpu_torch.models import gaussians as gm
     from sparse_view_3dgs_pack_tpu_torch.ops.binning import bin_gaussians
@@ -180,7 +791,7 @@ def phase_render(device, work: str):
     render(model, cams[0], bg)            # warm-up (cuBLAS, allocator)
     torch.cuda.synchronize()
 
-    rasterize_forward.launches = 0
+    reset_counts()
     torch.cuda.reset_peak_memory_stats()
     ev_ms, host_ms, pairs, first = [], [], [], None
     for cam in cams:
@@ -200,20 +811,19 @@ def phase_render(device, work: str):
                 and bool(torch.isfinite(res.render).all())
                 and bool(torch.isfinite(res.alpha).all())):
             raise AssertionError("non-finite or misshapen frame")
-    launches = rasterize_forward.launches
+    counts = read_counts()
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-    if launches != N_FRAMES:
-        raise AssertionError(f"raster_fwd launched {launches} times for "
-                             f"{N_FRAMES} frames")
+    if counts["raster_fwd"] != N_FRAMES:
+        raise AssertionError(f"raster_fwd launched {counts['raster_fwd']} "
+                             f"times for {N_FRAMES} frames")
     med = float(np.median(ev_ms))
     log("render", f"{N_FRAMES} frames {W}x{H}, {N_GAUSSIANS} Gaussians SH3: "
-                  f"median "
-                  f"{med:.3f} ms ({1e3 / med:.2f} fps; host clock median "
-                  f"{float(np.median(host_ms)):.3f} ms); pairs frame0="
+                  f"median {med:.3f} ms ({1e3 / med:.2f} fps; host clock "
+                  f"median {float(np.median(host_ms)):.3f} ms); pairs frame0="
                   f"{pairs[0]} median={int(np.median(pairs))}; peak "
-                  f"{peak_gib:.3f} GiB; raster_fwd launches={launches}")
-
-    log("render", _profile_frames(model, cams[1:4], bg))
+                  f"{peak_gib:.3f} GiB; launches {counts}")
+    log("render", _profile_line(
+        _profile(lambda: render(model, cams[1], bg), 3), "3 frames"))
 
     # frame 0 again, stage by stage: the kernel against the plain version
     # on the same inputs, and where the frame time goes
@@ -239,72 +849,25 @@ def phase_render(device, work: str):
         INFER_TILE_Y), 10)
     t_kernel = cuda_ms(lambda: rasterize_forward(*args), 20)
     t_plain = cuda_ms(lambda: rasterize_forward_torch(*args), 3)
+    nc = rasterize_forward(*args[:-4], W, H, INFER_TILE_X, INFER_TILE_Y,
+                           True).n_contrib
+    work = _work(proj, ba, nc, W, H, INFER_TILE_X, INFER_TILE_Y)
+    fb = _fwd_bound(proj.means2d.shape[0], 3, ba.total_pairs,
+                    ba.tile_counts.shape[0], W, H, work, False)
+    log("render", f"frame0 work: {work.before_stop} (pair, pixel) "
+                  f"evaluations before the stops, {work.skipped} skipped "
+                  f"({100 * work.skipped / work.before_stop:.1f}%), "
+                  f"{work.stops} pixels stop early")
     log("render", f"frame0 stages: projection {t_proj:.3f} ms, binning "
                   f"{t_bin:.3f} ms (one host sync for the pair count), "
-                  f"raster kernel {t_kernel:.3f} ms; plain raster "
-                  f"{t_plain:.3f} ms ({t_plain / t_kernel:.1f}x the kernel)")
-    return ply, {"name": "raster_fwd", "route": "cuda",
-                 "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
-                 "launches": launches,
-                 "max_abs_err": max(errs["color"], errs["alpha"],
-                                    errs["invdepth"]),
-                 "ms": t_kernel, "plain_ms": t_plain}
-
-
-def _profile_frames(model, cams, bg) -> str:
-    """Device busy share and kernel launches per frame over a few frames,
-    from torch.profiler's CUDA activity."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    from sparse_view_3dgs_pack_tpu_torch.renderer import render
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for cam in cams:
-            render(model, cam, bg)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / len(cams)
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if not dev:
-        return "profile: no device activity recorded (not measured)"
-    spans = sorted((e.time_range.start, e.time_range.end) for e in dev)
-    busy, cur_s, cur_e = 0.0, *spans[0]
-    for s, e in spans[1:]:
-        if s > cur_e:
-            busy += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    busy = (busy + cur_e - cur_s) / 1e3 / len(cams)
-    by_name: dict[str, float] = {}
-    for e in dev:
-        by_name[e.name] = by_name.get(e.name, 0.0) + (
-            e.time_range.end - e.time_range.start) / 1e3 / len(cams)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
-    return (f"profile over {len(cams)} frames: device busy {busy:.3f} ms "
-            f"of {wall_ms:.3f} ms per frame ({100 * (1 - busy / wall_ms):.1f}"
-            f"% idle), {len(dev) / len(cams):.0f} device ops per frame; top: "
-            + "; ".join(f"{n[:48]} {t:.3f} ms" for n, t in top))
-
-
-def _project_model(model, cam):
-    from sparse_view_3dgs_pack_tpu_torch.ops.projection import \
-        project_gaussians
-    p = cam.params()
-    dev = model.xyz.device
-    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
-    with torch.no_grad():
-        return project_gaussians(
-            means3d=model.xyz, scales=torch.exp(model.scaling),
-            quats=model.rotation,
-            opacities=torch.sigmoid(model.opacity[:, 0]),
-            viewmat=t(p.viewmat), full_proj=t(p.full_proj),
-            cam_center=t(p.cam_center), tan_fovx=float(p.tan_fovx),
-            tan_fovy=float(p.tan_fovy), width=cam.width, height=cam.height,
-            sh=torch.cat([model.features_dc, model.features_rest], 1),
-            sh_degree=model.max_sh_degree)
+                  f"raster kernel {t_kernel:.3f} ms (bound {fb[0]:.4f} ms by "
+                  f"{fb[1]}); plain raster {t_plain:.3f} ms "
+                  f"({t_plain / t_kernel:.1f}x the kernel)")
+    return ply, {"raster_fwd": dict(
+        launches=counts["raster_fwd"],
+        max_abs_err=max(errs["color"], errs["alpha"], errs["invdepth"]),
+        ms=t_kernel, plain_ms=t_plain, bound_ms=fb[0], bound_by=fb[1],
+        library_ms=None)}
 
 
 def phase_cli(ply: str, work: str) -> None:
@@ -365,21 +928,35 @@ def phase_cli(ply: str, work: str) -> None:
 
 
 def main() -> None:
+    t_start = time.perf_counter()
     card = phase_device()
     device = torch.device("cuda")
     phase_build()
-    worst_small = phase_kernels(device)
-    log("kernel", f"all small scenes within {SMALL_TOL} "
-                  f"(worst {worst_small:.3g})")
+    worst = phase_kernels(device)
+    log("kernel", f"all small scenes within {SMALL_TOL} (worst {worst:.3g})")
+    worst = phase_bwd_small(device)
+    log("bwd", f"all small scenes within {SMALL_TOL} of the largest "
+               f"gradient (worst {worst:.3g})")
     work = os.path.join(REPO, "build", "chip_smoke")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
-    ply, kernel = phase_render(device, work)
+    paths = {"train": phase_train(device)}
+    phase_train_cli(work, device)
+    ply, paths["render"] = phase_render(device, work)
     phase_cli(ply, work)
-    if "jax" in sys.modules:
-        raise AssertionError("jax was imported")
+    if "jax" in sys.modules or any(
+            k.split(".")[0] == "sparse_view_3dgs_pack_tpu"
+            for k in sys.modules):
+        raise AssertionError("jax or the JAX package was imported")
+    log("done", f"all phases in {time.perf_counter() - t_start:.1f} s")
     print(card)
-    print(json.dumps({"kernels": [kernel]}))
+    # one entry per (kernel, path): launches, times and bound at that
+    # path's own shape (train 800x800 16x16 tiles, render 1080p 32x16)
+    print(json.dumps({"kernels": [
+        {"name": name, "path": path, "route": "cuda",
+         "source": KERNELS[name][0], "replaces": KERNELS[name][1], **entry}
+        for path, kernels in paths.items()
+        for name, entry in kernels.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,22 +1,29 @@
-"""sparse_view_3dgs_pack_tpu_torch — the PyTorch/CUDA port of the render path.
+"""sparse_view_3dgs_pack_tpu_torch — the PyTorch/CUDA port of the 3DGS /
+LGDWT-GS training and render paths.
 
 A second package beside the JAX reference `sparse_view_3dgs_pack_tpu`, with
 the same module paths so each module's counterpart is easy to find. It
-imports `torch` and never `jax`; host-only modules of the JAX package that
-import no jax (`data/cameras.py`, `data/ply.py`, `data/colmap.py`,
-`data/native.py`, `utils/graphics.py`, `config.py`, `testing.py`) are
-imported from there, not copied.
+imports `torch` and nothing of jax or the JAX package: the host-only
+modules it needs from there (`config.py`, `data/cameras.py`,
+`data/colmap.py`, `data/ply.py`, `utils/graphics.py`, the generators of
+`testing.py`) are copied under the same path.
 
 Layout:
   device.py     explicit torch.device resolution (no silent CPU fallback)
   ops/          projection, tile binning, blending math, the dense oracle,
-                and the forward rasterizer: a hand-written CUDA kernel
-                (`csrc/raster_fwd.cu`) beside its plain PyTorch version
-  models/       GaussianModel (nn.Module), PLY IO, the JAX weight bridge
-  renderer.py   render_core / render (inference)
-  data/         scene readers and camera loading without PIL/cv2
-  losses/, metrics/   SSIM and PSNR; `python -m ...metrics` is the CLI
+                the exact 3-NN scale init, and the tile rasterizer: forward
+                and backward hand-written CUDA kernels (`csrc/raster_fwd.cu`,
+                `csrc/raster_bwd.cu`) beside their plain PyTorch versions,
+                joined by a `torch.autograd.Function`
+  models/       GaussianModel (nn.Module), create_from_pcd, PLY IO, the JAX
+                state bridge
+  renderer.py   render_core (inference and training) / render
+  losses/       L1, SSIM, Haar-DWT subbands, ELF patch DWT, depth L1
+  train/        step, per-group Adam, densification, Trainer, recipes;
+                `python -m sparse_view_3dgs_pack_tpu_torch.train`
+  data/, scene.py   scene readers, cameras, Scene (load and init/save)
+  metrics/      SSIM and PSNR; `python -m ...metrics` is the CLI
   render.py     `python -m sparse_view_3dgs_pack_tpu_torch.render`
 """
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"

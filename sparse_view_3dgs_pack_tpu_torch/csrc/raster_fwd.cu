@@ -4,9 +4,9 @@
 // Replaces the TPU kernel `rasterize_forward_pallas` -> `_fwd_kernel`
 // (sparse_view_3dgs_pack_tpu/ops/pallas/raster.py:151-432) in both of its
 // instantiations: inference (32x16 tiles, used by the render path) and
-// training (16x16, which also records the per-pixel n_contrib that the
-// backward replays). The plain PyTorch version of the same function is
-// `rasterize_forward_torch` in ops/raster.py.
+// training (16x16, which also records the per-pixel n_contrib and log
+// T_final that the backward, csrc/raster_bwd.cu, replays). The plain PyTorch
+// version of the same function is `rasterize_forward_torch` in ops/raster.py.
 //
 // What bounds it on an H100: per pixel and per pair it does one
 // shared-memory read of the pair's Gaussian (broadcast to the whole warp),
@@ -36,6 +36,8 @@
 //     T_final * bg; alpha = 1 - exp(log_T);
 //   * n_contrib counts every pair before the stop, skipped pairs included
 //     (what the JAX backward replays; not CUDA's last_contributor);
+//   * log T_final is written as the log-domain sum itself: 1 - alpha cannot
+//     give it back to f32 accuracy where T is near the 1e-4 stop;
 //   * pixels past the image edge are not written.
 
 #include <cuda_runtime.h>
@@ -65,6 +67,7 @@ raster_fwd_kernel(const float* __restrict__ means2d,    // (P, 2)
                   float* __restrict__ out_depth,        // (H, W)
                   float* __restrict__ out_alpha,        // (H, W)
                   int* __restrict__ out_n_contrib,      // (H, W) if kNContrib
+                  float* __restrict__ out_log_t,        // (H, W) if kNContrib
                   int width, int height, int tile_x, int tile_y,
                   int grid_x) {
   constexpr int NP = C + 2;  // payload: colours, inverse depth, depth
@@ -154,7 +157,10 @@ raster_fwd_kernel(const float* __restrict__ means2d,    // (P, 2)
   out_invdepth[pix] = acc[C];
   out_depth[pix] = acc[C + 1];
   out_alpha[pix] = 1.0f - T;
-  if (kNContrib) out_n_contrib[pix] = n_contrib;
+  if (kNContrib) {
+    out_n_contrib[pix] = n_contrib;
+    out_log_t[pix] = log_t;
+  }
 }
 
 template <int C, bool kNContrib>
@@ -163,12 +169,12 @@ void launch(int num_tiles, int n, size_t smem, cudaStream_t stream,
             const float* colors, const float* depths, const int* ids,
             const int* starts, const int* counts, const float* bg,
             float* out_color, float* out_invdepth, float* out_depth,
-            float* out_alpha, int* out_n_contrib, int width, int height,
-            int tile_x, int tile_y, int grid_x) {
+            float* out_alpha, int* out_n_contrib, float* out_log_t, int width,
+            int height, int tile_x, int tile_y, int grid_x) {
   raster_fwd_kernel<C, kNContrib><<<num_tiles, n, smem, stream>>>(
       means2d, conics, opacities, colors, depths, ids, starts, counts, bg,
-      out_color, out_invdepth, out_depth, out_alpha, out_n_contrib, width,
-      height, tile_x, tile_y, grid_x);
+      out_color, out_invdepth, out_depth, out_alpha, out_n_contrib,
+      out_log_t, width, height, tile_x, tile_y, grid_x);
 }
 
 template <bool kNContrib>
@@ -179,15 +185,15 @@ bool dispatch_channels(int channels, int num_tiles, int n, size_t smem,
                        const int* ids, const int* starts, const int* counts,
                        const float* bg, float* out_color, float* out_invdepth,
                        float* out_depth, float* out_alpha, int* out_n_contrib,
-                       int width, int height, int tile_x, int tile_y,
-                       int grid_x) {
+                       float* out_log_t, int width, int height, int tile_x,
+                       int tile_y, int grid_x) {
 #define RASTER_FWD_CASE(CH)                                                  \
   case CH:                                                                   \
     launch<CH, kNContrib>(num_tiles, n, smem, stream, means2d, conics,       \
                           opacities, colors, depths, ids, starts, counts, bg, \
                           out_color, out_invdepth, out_depth, out_alpha,     \
-                          out_n_contrib, width, height, tile_x, tile_y,      \
-                          grid_x);                                           \
+                          out_n_contrib, out_log_t, width, height, tile_x,   \
+                          tile_y, grid_x);                                   \
     return true;
   switch (channels) {
     RASTER_FWD_CASE(1)
@@ -212,12 +218,14 @@ extern "C" int raster_fwd(const void* means2d, const void* conics,
                           const void* starts, const void* counts,
                           const void* bg, void* out_color, void* out_invdepth,
                           void* out_depth, void* out_alpha,
-                          void* out_n_contrib, int num_tiles, int channels,
+                          void* out_n_contrib, void* out_log_t,
+                          int num_tiles, int channels,
                           int width, int height, int tile_x, int tile_y,
                           int grid_x, int compute_n_contrib, void* stream) {
   const int n = tile_x * tile_y;
   if (n <= 0 || n > kMaxTilePixels || num_tiles < 0 ||
-      (compute_n_contrib && out_n_contrib == nullptr))
+      (compute_n_contrib && (out_n_contrib == nullptr ||
+                             out_log_t == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (num_tiles == 0) return static_cast<int>(cudaGetLastError());
   const size_t smem = static_cast<size_t>(n) * (6 + channels + 2) *
@@ -237,8 +245,9 @@ extern "C" int raster_fwd(const void* means2d, const void* conics,
                 static_cast<float*>(out_color),
                 static_cast<float*>(out_invdepth),
                 static_cast<float*>(out_depth), static_cast<float*>(out_alpha),
-                static_cast<int*>(out_n_contrib), width, height, tile_x,
-                tile_y, grid_x)
+                static_cast<int*>(out_n_contrib),
+                static_cast<float*>(out_log_t), width, height, tile_x, tile_y,
+                grid_x)
           : dispatch_channels<false>(
                 channels, num_tiles, n, smem, s,
                 static_cast<const float*>(means2d),
@@ -251,7 +260,7 @@ extern "C" int raster_fwd(const void* means2d, const void* conics,
                 static_cast<float*>(out_color),
                 static_cast<float*>(out_invdepth),
                 static_cast<float*>(out_depth), static_cast<float*>(out_alpha),
-                nullptr, width, height, tile_x, tile_y, grid_x);
+                nullptr, nullptr, width, height, tile_x, tile_y, grid_x);
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }

@@ -13,9 +13,9 @@ import os
 
 import numpy as np
 
-from sparse_view_3dgs_pack_tpu.data.cameras import Camera
-
 from ..utils import image_io
+from ..utils.graphics import fov2focal
+from .cameras import Camera
 
 _WARNED = False
 
@@ -125,3 +125,23 @@ def camera_list_from_cam_infos(cam_infos, resolution_scale, args,
                                is_nerf_synthetic, is_test_dataset):
     return [load_cam(args, i, c, resolution_scale, is_nerf_synthetic,
                      is_test_dataset) for i, c in enumerate(cam_infos)]
+
+
+def camera_to_json(uid, camera):
+    """`cameras.json` entry of one CameraInfo (reference
+    `utils/camera_utils.py:camera_to_JSON`)."""
+    rt = np.zeros((4, 4))
+    rt[:3, :3] = camera.R.T
+    rt[:3, 3] = camera.T
+    rt[3, 3] = 1.0
+    c2w = np.linalg.inv(rt)
+    return {
+        "id": uid,
+        "img_name": camera.image_name,
+        "width": camera.width,
+        "height": camera.height,
+        "position": c2w[:3, 3].tolist(),
+        "rotation": [r.tolist() for r in c2w[:3, :3]],
+        "fy": fov2focal(camera.fovy, camera.height),
+        "fx": fov2focal(camera.fovx, camera.width),
+    }

@@ -3,7 +3,9 @@
 The port's own copy of `sparse_view_3dgs_pack_tpu/data/readers.py`, kept
 line for line with it except for two changes: `sh2rgb` comes from the
 port's `utils/sh.py` (the JAX module imports jax through its own), and image
-sizes come from `utils/image_io.py`, not PIL.
+sizes come from `utils/image_io.py`, not PIL. COLMAP, PLY and camera math
+are the port's own copies (`data/colmap.py`, `data/ply.py`,
+`utils/graphics.py`).
 
 Behavioural port of the reference `scene/dataset_readers.py`
 (`LGDWT-GS/scene/dataset_readers.py:188-330`): llffhold eval split on sorted
@@ -16,19 +18,16 @@ from __future__ import annotations
 import json
 import math
 import os
-import sys
 from pathlib import Path
 from typing import NamedTuple, Optional
 
 import numpy as np
 
-from sparse_view_3dgs_pack_tpu.data import colmap, ply
-from sparse_view_3dgs_pack_tpu.utils.graphics import (BasicPointCloud,
-                                                      focal2fov, fov2focal,
-                                                      get_world2view)
-
 from ..utils import image_io
+from ..utils.graphics import (BasicPointCloud, focal2fov, fov2focal,
+                              get_world2view)
 from ..utils.sh import sh2rgb
+from . import colmap, ply
 
 
 class CameraInfo(NamedTuple):

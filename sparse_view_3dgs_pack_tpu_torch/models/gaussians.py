@@ -1,33 +1,40 @@
-"""GaussianModel: the trained point set as an nn.Module, PLY IO, and the
-weight bridge from the JAX package.
+"""GaussianModel: the point set as an nn.Module, its initialisation from a
+point cloud, PLY IO, and the weight bridge from the JAX package.
 
-Counterpart of `sparse_view_3dgs_pack_tpu/models/gaussians.py:42-63,
-199-285`. The JAX `GaussianState` keeps fixed-capacity buffers with an alive
-prefix (static shapes for XLA); eager PyTorch needs no padding, so the model
-holds only the alive rows. Storage conventions are the reference's
-(pre-activation):
+Counterpart of `sparse_view_3dgs_pack_tpu/models/gaussians.py`. The JAX
+`GaussianState` keeps fixed-capacity buffers with an alive prefix (static
+shapes for XLA); eager PyTorch needs no padding, so the model holds only
+the alive rows, and densification replaces its parameters with new ones of
+another length. Storage conventions are the reference's (pre-activation):
   xyz           (N, 3)
   features_dc   (N, 1, C)      SH degree-0 coefficients
   features_rest (N, K-1, C)    higher SH coefficients
   scaling       (N, 3)         log-scale
   rotation      (N, 4)         unnormalised quaternion (w, x, y, z)
   opacity       (N, 1)         inverse-sigmoid
-plus the `exposure` buffer (n_images, 3, 4).
+plus the buffers `exposure` (n_images, 3, 4) and the densification
+statistics `xyz_gradient_accum`, `denom`, `max_radii2d` (N,).
 """
 
 from __future__ import annotations
 
+import json
 import os
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 from torch import nn
 
-from sparse_view_3dgs_pack_tpu.data import ply as ply_io
+from ..data import ply as ply_io
+from ..device import resolve_device
+from ..ops.knn import dist2_for_scale_init
+from ..utils.general import inverse_sigmoid
+from ..utils.sh import rgb2sh
 
 PARAM_NAMES = ("xyz", "features_dc", "features_rest", "scaling", "rotation",
                "opacity")
+STAT_NAMES = ("xyz_gradient_accum", "denom", "max_radii2d")
 
 
 class GaussianModel(nn.Module):
@@ -45,24 +52,126 @@ class GaussianModel(nn.Module):
                                        (max(n_images, 1), 3, 4))
         self.register_buffer("exposure", torch.tensor(
             np.asarray(exposure, np.float32)))
+        n = self.xyz.shape[0]
+        for name in STAT_NAMES:
+            self.register_buffer(name, torch.zeros(n))
 
     @property
     def max_sh_degree(self) -> int:
         k = self.features_dc.shape[1] + self.features_rest.shape[1]
         return int(round(k ** 0.5)) - 1
 
+    @property
+    def num_points(self) -> int:
+        return self.xyz.shape[0]
+
     def params(self) -> dict[str, torch.Tensor]:
         """name → parameter, the layout `renderer.render_core` takes."""
         return {name: getattr(self, name) for name in PARAM_NAMES}
 
+    @torch.no_grad()
+    def set_rows(self, params: dict[str, torch.Tensor]) -> None:
+        """Replace every parameter with a new tensor (densification changes
+        the row count) and zero the densification statistics."""
+        for name in PARAM_NAMES:
+            setattr(self, name, nn.Parameter(params[name].contiguous()))
+        for name in STAT_NAMES:
+            setattr(self, name, torch.zeros(self.xyz.shape[0],
+                                            device=self.xyz.device))
+
+    def get_scaling(self) -> torch.Tensor:
+        return torch.exp(self.scaling)
+
+    def get_opacity(self) -> torch.Tensor:
+        """(N,) activated opacity."""
+        return torch.sigmoid(self.opacity[:, 0])
+
+
+def create_from_pcd(points: np.ndarray, colors: np.ndarray, n_images: int,
+                    sh_degree: int = 3, channels: int = 3,
+                    init_opacity: float = 0.1,
+                    device: str | torch.device = "cuda") -> GaussianModel:
+    """Initialise from a point cloud (JAX `create_from_pcd`, reference
+    `gaussian_model.py:149-176`): SH-DC from colours, log-scale from the
+    mean squared distance to the 3 nearest neighbours (exact, on `device`),
+    identity rotations, opacity 0.1."""
+    device = resolve_device(device)
+    n = points.shape[0]
+    K = (sh_degree + 1) ** 2
+    xyz = torch.as_tensor(np.asarray(points, np.float32), device=device)
+    cols = torch.as_tensor(np.asarray(colors, np.float32)[:, :channels],
+                           device=device)
+    f_dc = rgb2sh(cols)[:, None, :]
+    f_rest = torch.zeros((n, K - 1, channels), device=device)
+    d2 = dist2_for_scale_init(xyz)
+    scaling = torch.log(torch.sqrt(d2))[:, None].repeat(1, 3)
+    rotation = torch.zeros((n, 4), device=device)
+    rotation[:, 0] = 1.0
+    opacity = torch.full((n, 1), float(inverse_sigmoid(
+        torch.tensor(init_opacity, dtype=torch.float32))), device=device)
+    model = GaussianModel(xyz.cpu().numpy(), f_dc.cpu().numpy(),
+                          f_rest.cpu().numpy(), scaling.cpu().numpy(),
+                          rotation.cpu().numpy(), opacity.cpu().numpy(),
+                          n_images=n_images)
+    return model.to(device)
+
+
+def save_exposure_json(model: GaussianModel, image_names, path: str) -> None:
+    """`exposure.json` sidecar (reference `scene/__init__.py:86-95`)."""
+    exp = model.exposure.detach().cpu().numpy()
+    out = {name: exp[min(i, len(exp) - 1)].tolist()
+           for i, name in enumerate(image_names)}
+    with open(path, "w") as f:
+        json.dump(out, f, indent=2)
+
 
 def from_jax_params(params: dict, n_alive: int, exposure=None,
-                    device: str | torch.device = "cpu") -> GaussianModel:
+                    device: str | torch.device = "cuda",
+                    stats: Optional[dict] = None) -> GaussianModel:
     """Rows [:n_alive] of each JAX `GaussianState.params` array (numpy, or
-    anything `np.asarray` takes) → GaussianModel on `device`."""
+    anything `np.asarray` takes) → GaussianModel on `device`. `stats`:
+    name → the JAX state's `xyz_gradient_accum` / `denom` / `max_radii2d`
+    (capacity-long; alive rows are taken)."""
+    device = resolve_device(device)
     rows = {name: np.asarray(params[name])[:n_alive] for name in PARAM_NAMES}
     exp = None if exposure is None else np.asarray(exposure)
-    return GaussianModel(**rows, exposure=exp).to(device)
+    model = GaussianModel(**rows, exposure=exp)
+    for name, value in (stats or {}).items():
+        setattr(model, name, torch.tensor(
+            np.asarray(value, np.float32)[:n_alive]))
+    return model.to(device)
+
+
+class BridgedState(NamedTuple):
+    model: GaussianModel
+    adam: object        # train.optim.AdamState or None
+    exp_adam: object    # train.optim.ExposureAdamState or None
+
+
+def from_jax_state(state, adam=None, exp_adam=None,
+                   device: str | torch.device = "cuda") -> BridgedState:
+    """A JAX `GaussianState` (its params, exposure and statistics) and
+    optionally its `AdamState` / `ExposureAdam` → the port's model and
+    optimizer states, alive rows only. Duck-typed: anything with the same
+    attributes and numpy-convertible arrays works."""
+    from ..train.optim import AdamState, ExposureAdamState
+    device = resolve_device(device)
+    n = int(state.n_alive)
+    model = from_jax_params(
+        state.params, n, exposure=state.exposure, device=device,
+        stats={name: getattr(state, name) for name in STAT_NAMES})
+
+    def rows(d):
+        return {k: torch.tensor(np.asarray(d[k])[:n], device=device)
+                for k in PARAM_NAMES}
+
+    port_adam = None if adam is None else AdamState(
+        m=rows(adam.m), v=rows(adam.v), step=int(adam.step))
+    port_exp = None if exp_adam is None else ExposureAdamState(
+        m=torch.tensor(np.asarray(exp_adam.m), device=device),
+        v=torch.tensor(np.asarray(exp_adam.v), device=device),
+        step=int(exp_adam.step))
+    return BridgedState(model, port_adam, port_exp)
 
 
 def save_ply(model: GaussianModel, path: str) -> None:
@@ -94,9 +203,10 @@ def save_ply(model: GaussianModel, path: str) -> None:
 
 
 def load_ply(path: str, sh_degree: int = 3, n_images: int = 1,
-             device: str | torch.device = "cpu",
+             device: str | torch.device = "cuda",
              exposure: Optional[np.ndarray] = None) -> GaussianModel:
     """Read a reference-schema PLY written by either package."""
+    device = resolve_device(device)
     v = ply_io.read_ply(path)
     n = len(v["x"])
     xyz = np.stack([v["x"], v["y"], v["z"]], axis=1)

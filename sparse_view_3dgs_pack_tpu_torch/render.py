@@ -20,9 +20,7 @@ from argparse import ArgumentParser
 import numpy as np
 import torch
 
-from sparse_view_3dgs_pack_tpu.config import (ModelParams, PipelineParams,
-                                              get_combined_args)
-
+from .config import ModelParams, PipelineParams, get_combined_args
 from .device import resolve_device
 from .renderer import render
 from .scene import Scene

@@ -1,8 +1,9 @@
 """Synthetic fixtures for the port's tests and `chip_smoke.py`.
 
-The cloud and camera generators are the JAX package's own (numpy only, no
-jax); this module adds the rasterizer test scenes of `tests/test_pallas.py`
-and a Blender-layout scene writer that needs no PIL.
+`look_at_rt`, `make_orbit_cameras` and `make_gaussian_cloud` are copies of
+the generators in `sparse_view_3dgs_pack_tpu/testing.py` and give the same
+numbers from the same seed; this module adds the rasterizer test scenes of
+`tests/test_pallas.py` and a Blender-layout scene writer that needs no PIL.
 """
 
 from __future__ import annotations
@@ -13,11 +14,58 @@ import os
 
 import numpy as np
 
-from sparse_view_3dgs_pack_tpu.testing import (look_at_rt,
-                                               make_gaussian_cloud,
-                                               make_orbit_cameras)
-
 from .utils import image_io
+
+
+def look_at_rt(eye, target, up=(0.0, 0.0, 1.0)):
+    """Returns (R, T) in the dataset-reader convention: R = cam→world rotation
+    (transposed world→cam), T = world→cam translation. Camera looks down +z."""
+    eye = np.asarray(eye, np.float64)
+    target = np.asarray(target, np.float64)
+    fwd = target - eye
+    fwd /= np.linalg.norm(fwd)
+    up = np.asarray(up, np.float64)
+    right = np.cross(fwd, up)
+    if np.linalg.norm(right) < 1e-6:
+        right = np.cross(fwd, np.array([0.0, 1.0, 0.0]))
+    right /= np.linalg.norm(right)
+    down = np.cross(fwd, right)
+    Rw2c = np.stack([right, down, fwd], axis=0)  # world→cam
+    T = -Rw2c @ eye
+    return Rw2c.T, T  # stored convention transposes back
+
+
+def make_orbit_cameras(n, radius=4.0, height=1.2, fovx=math.radians(60),
+                       width=128, height_px=None, target=(0, 0, 0),
+                       phase=0.0):
+    from .data.cameras import Camera
+    H = height_px or width
+    fovy = 2 * math.atan(math.tan(fovx / 2) * H / width)
+    cams = []
+    for i in range(n):
+        a = 2 * math.pi * i / max(n, 1) + phase
+        eye = (radius * math.cos(a), radius * math.sin(a), height)
+        R, T = look_at_rt(eye, target)
+        cams.append(Camera(uid=i, colmap_id=i + 1, R=R, T=T, fovx=fovx,
+                           fovy=fovy, image_name=f"r_{i:03d}.png",
+                           width=width, height=H))
+    return cams
+
+
+def make_gaussian_cloud(key_or_seed, n, extent=1.0, scale_range=(0.02, 0.12),
+                        channels=3, sh_degree=0):
+    """Random raw Gaussian parameter dict (pre-activation), numpy."""
+    rng = np.random.default_rng(key_or_seed)
+    xyz = rng.uniform(-extent, extent, (n, 3)).astype(np.float32)
+    n_sh = (sh_degree + 1) ** 2
+    features = np.zeros((n, n_sh, channels), np.float32)
+    features[:, 0, :] = rng.uniform(-1.5, 1.5, (n, channels))
+    scales = np.log(rng.uniform(*scale_range, (n, 3))).astype(np.float32)
+    quats = rng.normal(size=(n, 4)).astype(np.float32)
+    quats /= np.linalg.norm(quats, axis=1, keepdims=True)
+    opacity = rng.uniform(-1.0, 3.0, (n, 1)).astype(np.float32)  # pre-sigmoid
+    return dict(xyz=xyz, features=features, scales=scales, quats=quats,
+                opacity=opacity)
 
 RASTER_W, RASTER_H = 64, 48
 RASTER_SCENES = ("basic", "multichunk", "sticky")
@@ -68,15 +116,29 @@ def make_sh3_cloud(seed: int, n: int, extent: float = 2.5,
 
 
 def write_blender_scene(root: str, n_train: int = 4, n_test: int = 2,
-                        width: int = 800):
-    """NeRF-synthetic layout (transforms_{train,test}.json + black RGB PNGs
-    written with `image_io`) for orbit cameras at radius 6 around the origin
-    (the orbit of `chip_smoke.py`'s 1080p frames). The images are
-    placeholders for the caller to overwrite."""
+                        width: int = 800, cloud=None, device="cpu",
+                        init_points: int = 0):
+    """NeRF-synthetic layout (transforms_{train,test}.json + RGB PNGs written
+    with `image_io`) for orbit cameras at radius 6 around the origin (the
+    orbit of `chip_smoke.py`'s 1080p frames).
+
+    Without `cloud` the images are black placeholders for the caller to
+    overwrite. With a `make_gaussian_cloud` dict they are renders of it
+    (the port's renderer on `device`, black background), and
+    `init_points` > 0 also writes `points3d.ply`: that many of the cloud's
+    centres, moved by N(0, 0.05) noise, with random colours — the training
+    start the readers pick up."""
     radius, height, fovx = 6.0, 1.5, math.radians(50)
     os.makedirs(os.path.join(root, "train"), exist_ok=True)
     os.makedirs(os.path.join(root, "test"), exist_ok=True)
     blank = np.zeros((width, width, 3), np.uint8)
+    model = None
+    if cloud is not None:
+        from .models.gaussians import GaussianModel
+        f = cloud["features"]
+        model = GaussianModel(cloud["xyz"], f[:, :1], f[:, 1:],
+                              cloud["scales"], cloud["quats"],
+                              cloud["opacity"]).to(device)
     for split, n in (("train", n_train), ("test", n_test)):
         frames = []
         for i in range(n):
@@ -89,9 +151,28 @@ def write_blender_scene(root: str, n_train: int = 4, n_test: int = 2,
             w2c[:3, 3] = T
             c2w = np.linalg.inv(w2c)
             c2w[:3, 1:3] *= -1   # the reader flips y/z back
-            image_io.write_png(os.path.join(root, split, f"r_{i}.png"), blank)
+            image = blank if model is None else _render_u8(
+                model, R_c2w, T, fovx, width)
+            image_io.write_png(os.path.join(root, split, f"r_{i}.png"), image)
             frames.append({"file_path": f"./{split}/r_{i}",
                            "transform_matrix": c2w.tolist()})
         with open(os.path.join(root, f"transforms_{split}.json"), "w") as f:
             json.dump({"camera_angle_x": fovx, "frames": frames}, f)
+    if cloud is not None and init_points > 0:
+        from .data.ply import store_point_cloud
+        rng = np.random.default_rng(0)
+        sel = rng.choice(len(cloud["xyz"]), init_points, replace=False)
+        store_point_cloud(os.path.join(root, "points3d.ply"),
+                          cloud["xyz"][sel]
+                          + rng.normal(0, 0.05, (init_points, 3)),
+                          rng.random((init_points, 3)))
     return root
+
+
+def _render_u8(model, R, T, fovx, width):
+    from .data.cameras import Camera
+    from .render import to_u8
+    from .renderer import render
+    cam = Camera(uid=0, colmap_id=0, R=R, T=T, fovx=fovx, fovy=fovx,
+                 image_name="", width=width, height=width)
+    return to_u8(render(model, cam, [0.0, 0.0, 0.0]).render)

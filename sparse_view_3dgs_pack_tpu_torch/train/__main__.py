@@ -1,0 +1,99 @@
+#!/usr/bin/env python3
+"""Training CLI of the port:
+
+    python -m sparse_view_3dgs_pack_tpu_torch.train -s <scene> -m <out> \
+        --method lgdwt [--device cuda]
+
+Flag-compatible with the root `train.py` (reference `LGDWT-GS/train.py:
+356-384`) and writes the same model directory: `cfg_args`, `input.ply`,
+`cameras.json`, `point_cloud/iteration_N/point_cloud.ply`,
+`exposure.json`. `--device cuda` (the default; never falls back) trains
+through the CUDA rasterizer kernels, `--device cpu` through their plain
+PyTorch versions. Not ported yet, and raising NotImplementedError:
+`--method fsgs|dngaussian|mult-dwtgs`, `--checkpoint_iterations`,
+`--start_checkpoint`, `--data_parallel` other than 1, `--profile`.
+"""
+
+from __future__ import annotations
+
+import os
+from argparse import ArgumentParser
+
+import torch
+
+from ..config import (ModelParams, OptimizationParams, PipelineParams,
+                      write_cfg_args)
+from ..device import resolve_device
+from ..utils.general import safe_state
+
+
+def _check_ported(args) -> None:
+    from .recipes import NOT_PORTED
+    if args.method in NOT_PORTED:
+        raise NotImplementedError(
+            f"--method {args.method} is not ported to the PyTorch package "
+            f"yet (ROADMAP Queue 1 item {NOT_PORTED[args.method]})")
+    for flag, bad, item in (
+            ("--checkpoint_iterations", bool(args.checkpoint_iterations), 5),
+            ("--start_checkpoint", bool(args.start_checkpoint), 5),
+            ("--data_parallel", args.data_parallel not in ("1", "off", ""),
+             12),
+            ("--profile", bool(args.profile), 7)):
+        if bad:
+            raise NotImplementedError(
+                f"{flag} is not ported to the PyTorch package yet (ROADMAP "
+                f"Queue 1 item {item})")
+
+
+def main(argv=None):
+    parser = ArgumentParser(description="Training script parameters")
+    parser.add_argument("--method", type=str, default=os.environ.get(
+        "GS_METHOD", "lgdwt"),
+        choices=["3dgs", "lgdwt", "fsgs", "dngaussian", "mult-dwtgs"])
+    known, _ = parser.parse_known_args(argv)
+
+    lp = ModelParams(parser)
+    op = OptimizationParams(parser, method=known.method)
+    pp = PipelineParams(parser)
+    parser.add_argument("--ip", type=str, default="127.0.0.1")
+    parser.add_argument("--port", type=int, default=6009)
+    parser.add_argument("--debug_from", type=int, default=-1)
+    parser.add_argument("--detect_anomaly", action="store_true", default=False)
+    parser.add_argument("--test_iterations", nargs="+", type=int,
+                        default=[7_000, 30_000])
+    parser.add_argument("--save_iterations", nargs="+", type=int,
+                        default=[7_000, 30_000])
+    parser.add_argument("--quiet", action="store_true")
+    parser.add_argument("--checkpoint_iterations", nargs="+", type=int,
+                        default=[])
+    parser.add_argument("--start_checkpoint", type=str, default=None)
+    parser.add_argument("--disable_viewer", action="store_true", default=False)
+    parser.add_argument("--dataset_type", type=str, default="llff",
+                        choices=["llff", "dtu", "blender"])
+    parser.add_argument("--near_range", type=float, default=0.0)
+    parser.add_argument("--depth_estimator", type=str, default="auto",
+                        choices=["auto", "precomputed", "midas", "none"])
+    parser.add_argument("--profile", type=str, default="")
+    parser.add_argument("--data_parallel", type=str, default="1")
+    parser.add_argument("--device", default="cuda",
+                        help="cuda (the CUDA kernels) or cpu (their plain "
+                             "PyTorch versions); never falls back")
+    args = parser.parse_args(argv)
+    _check_ported(args)
+    args.save_iterations.append(args.iterations)
+    device = resolve_device(args.device)
+
+    print("Optimizing " + args.model_path)
+    torch.autograd.set_detect_anomaly(args.detect_anomaly)
+    safe_state(args.quiet)
+    os.makedirs(args.model_path, exist_ok=True)
+    write_cfg_args(args.model_path, args)
+
+    from .recipes import train_method
+    train_method(known.method, lp.extract(args), op.extract(args),
+                 pp.extract(args), args, device)
+    print("\nTraining complete.")
+
+
+if __name__ == "__main__":
+    main()

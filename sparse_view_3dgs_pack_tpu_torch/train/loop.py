@@ -1,0 +1,196 @@
+"""Host training loop for the 3DGS / LGDWT-GS family.
+
+Counterpart of `sparse_view_3dgs_pack_tpu/train/loop.py:116-574` without
+what exists for XLA's static shapes or the TPU mesh: no data parallelism,
+no speculative compiler, no capacity or pair buckets, no lagged pair-count
+readback. The loop samples cameras without replacement, evaluates the LR
+schedules, runs `train_step`, and fires the host events: densify / clone /
+split / prune, opacity reset, SH-degree growth, eval, save.
+"""
+
+from __future__ import annotations
+
+import random
+import time
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from ..losses.ssim import ssim as ssim_fn
+from ..renderer import render
+from ..utils.general import get_expon_lr_func
+from ..utils.image import psnr as psnr_fn
+from .densify import densify_and_prune, reset_opacity
+from .optim import (init_adam, init_exposure_adam, make_exposure_schedule,
+                    make_lr_schedules)
+from .step import CameraBank, StepConfig, train_step
+
+
+def evaluate_cameras(model, cameras, bg, active_sh,
+                     antialiasing=False) -> dict:
+    """Mean PSNR / L1 / SSIM of inference renders over a camera list
+    (`loop.py:61-95`; LPIPS is not ported)."""
+    if not cameras:
+        return {}
+    psnrs, l1s, ssims = [], [], []
+    for cam in cameras:
+        res = render(model, cam, bg, sh_degree_active=active_sh,
+                     antialiasing=antialiasing)
+        gt = torch.as_tensor(cam.image[..., :3], dtype=torch.float32,
+                             device=res.render.device)
+        psnrs.append(psnr_fn(res.render, gt))
+        l1s.append((res.render - gt).abs().mean())
+        ssims.append(ssim_fn(res.render, gt))
+    return {"psnr": float(torch.stack(psnrs).mean()),
+            "l1": float(torch.stack(l1s).mean()),
+            "ssim": float(torch.stack(ssims).mean()),
+            "n_views": len(cameras)}
+
+
+def format_eval(stats: dict) -> str:
+    return (f"PSNR {stats.get('psnr', 0):.2f}"
+            f" SSIM {stats.get('ssim', 0):.4f}")
+
+
+class Trainer:
+    """Owns the model, optimizer states and schedules on one device."""
+
+    def __init__(self, scene, opt, pipe, dataset_args):
+        self.scene = scene
+        self.opt = opt
+        self.pipe = pipe
+        self.dataset_args = dataset_args
+
+        self.model = scene.gaussians
+        self.device = self.model.xyz.device
+        cams = scene.getTrainCameras()
+        self.width = cams[0].width
+        self.height = cams[0].height
+        self.channels = 3
+        self.bank = CameraBank.from_cameras(cams, self.channels, self.device)
+
+        self.adam = init_adam(self.model.params())
+        self.exp_adam = init_exposure_adam(self.model.exposure)
+        self.dwt_running_mean = torch.ones((), device=self.device)
+        self.iteration = 0
+        self.active_sh_degree = 0
+        self.lr_scheds = make_lr_schedules(opt, scene.cameras_extent)
+        self.exposure_sched = make_exposure_schedule(opt)
+        self.depth_weight_sched = get_expon_lr_func(
+            opt.depth_l1_weight_init, opt.depth_l1_weight_final,
+            max_steps=opt.iterations)
+        self.background = torch.tensor(
+            [1.0, 1.0, 1.0] if dataset_args.white_background
+            else [0.0, 0.0, 0.0], device=self.device)[:self.channels]
+        self.cfg = self._config()
+        self.viewpoint_stack = []
+
+    def _config(self) -> StepConfig:
+        o = self.opt
+        return StepConfig(
+            width=self.width, height=self.height, channels=self.channels,
+            sh_degree=self.dataset_args.sh_degree,
+            lambda_dssim=o.lambda_dssim,
+            antialiasing=getattr(self.pipe, "antialiasing", False),
+            train_test_exp=getattr(self.dataset_args, "train_test_exp", False),
+            sparse_adam=(o.optimizer_type == "sparse_adam"),
+            dwt_enable=getattr(o, "dwt_enable", False),
+            dwt_weights=tuple(getattr(o, f"dwt_{k}_weight", 0.0) for k in (
+                "ll1", "lh1", "hl1", "hh1", "ll2", "lh2", "hl2", "hh2")),
+            patch_dwt_enable=getattr(o, "patch_dwt_enable", False),
+            patch_dwt_weight=getattr(o, "patch_dwt_weight", 0.1),
+            patch_size=getattr(o, "patch_size", 128),
+            patch_percentile=getattr(o, "patch_percentile", 0.2),
+            patch_dwt_lh1_weight=getattr(o, "patch_dwt_lh1_weight", 1.0),
+            patch_dwt_hl1_weight=getattr(o, "patch_dwt_hl1_weight", 1.0))
+
+    def pick_camera(self) -> int:
+        if not self.viewpoint_stack:
+            self.viewpoint_stack = list(range(len(self.scene.getTrainCameras())))
+        return self.viewpoint_stack.pop(
+            random.randint(0, len(self.viewpoint_stack) - 1))
+
+    def step(self) -> dict:
+        self.iteration += 1
+        it = self.iteration
+        o = self.opt
+        if it % 1000 == 0 and self.active_sh_degree < self.dataset_args.sh_degree:
+            self.active_sh_degree += 1
+        lrs = {k: f(it) for k, f in self.lr_scheds.items()}
+        bg = (torch.as_tensor(np.random.random(self.channels),
+                              dtype=torch.float32, device=self.device)
+              if getattr(o, "random_background", False) else self.background)
+        metrics, self.dwt_running_mean = train_step(
+            self.model, self.adam, self.exp_adam, self.dwt_running_mean,
+            self.bank, self.pick_camera(), lrs, self.exposure_sched(it),
+            self.depth_weight_sched(it), self.active_sh_degree, bg, self.cfg)
+
+        # densification events (reference train.py:265-276)
+        if it < o.densify_until_iter:
+            if it > o.densify_from_iter and it % o.densification_interval == 0:
+                size_thr = 20 if it > o.opacity_reset_interval else 0
+                gen = torch.Generator(device=self.device).manual_seed(it)
+                densify_and_prune(
+                    self.model, self.adam, o.densify_grad_threshold, 0.005,
+                    self.scene.cameras_extent, max_screen_size=size_thr,
+                    percent_dense=o.percent_dense, generator=gen)
+            if (it % o.opacity_reset_interval == 0
+                    or (self.dataset_args.white_background
+                        and it == o.densify_from_iter)):
+                reset_opacity(self.model, self.adam)
+        return metrics
+
+    def evaluate(self, cameras) -> dict:
+        return evaluate_cameras(self.model, cameras, self.background,
+                                self.active_sh_degree,
+                                getattr(self.pipe, "antialiasing", False))
+
+    def save_scene(self, iteration: int):
+        self.scene.gaussians = self.model
+        self.scene.save(iteration)
+
+
+def simple_train(scene, opt, pipe, dataset_args, testing_iterations=(),
+                 saving_iterations=(), progress: Optional[Callable] = None,
+                 tb: bool = True):
+    """The training loop of `loop.py:513-574` (checkpoints are not ported:
+    ROADMAP Queue 1 item 5)."""
+    from .logging import TrainReporter
+
+    trainer = Trainer(scene, opt, pipe, dataset_args)
+    reporter = TrainReporter(scene.model_path, enabled=tb)
+    t0 = time.time()
+    last = t0
+    for it in range(trainer.iteration + 1, opt.iterations + 1):
+        metrics = trainer.step()
+        if progress and it % 10 == 0:
+            progress(it, metrics)
+        if it % 10 == 0:
+            now = time.time()
+            reporter.scalars(it, metrics)
+            reporter.iter_time(it, (now - last) / 10)
+            last = now
+        if it in testing_iterations:
+            cams = scene.getTestCameras() or scene.getTrainCameras()[:4]
+            stats = trainer.evaluate(cams)
+            print(f"\n[ITER {it}] Evaluating: {format_eval(stats)} "
+                  f"({trainer.model.num_points} Gaussians)")
+            if reporter.writer is not None:
+                if getattr(opt, "dwt_enable", False):
+                    res = render(trainer.model, cams[0], trainer.background,
+                                 sh_degree_active=trainer.active_sh_degree)
+                    reporter.wef_heatmaps(it, res.render, torch.as_tensor(
+                        cams[0].image[..., :3], device=trainer.device))
+                reporter.writer.add_scalar("test/psnr", stats["psnr"], it)
+                reporter.writer.add_scalar("test/ssim", stats["ssim"], it)
+                reporter.histogram(it, "scene/opacity_histogram",
+                                   trainer.model.get_opacity().detach()
+                                   .cpu().numpy())
+                reporter.writer.add_scalar("scene/total_points",
+                                           trainer.model.num_points, it)
+        if it in saving_iterations:
+            print(f"\n[ITER {it}] Saving Gaussians")
+            trainer.save_scene(it)
+    reporter.close()
+    return trainer, time.time() - t0

@@ -1,0 +1,142 @@
+"""Per-group Adam with one global step, LR schedules, the sparse-Adam
+visibility mask, exposure Adam, and the moment surgery densification needs.
+
+Counterpart of `sparse_view_3dgs_pack_tpu/train/optim.py` (reference
+`torch.optim.Adam(l, lr=0.0, eps=1e-15)` param groups + `get_expon_lr_func`,
+`gaussian_model.py:178-223`). `torch.optim.Adam` is not used: it counts
+steps per parameter, while the JAX state has one `step` for every group
+(`optim.py:65`), and its update is not written in the same order. Updates
+are in place; the model holds only alive rows, so the moments are row
+tensors of the same length as the parameters.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, Optional
+
+import torch
+
+from ..utils.general import get_expon_lr_func
+
+BETA1, BETA2 = 0.9, 0.999
+EPS = 1e-15
+EXPOSURE_EPS = 1e-8
+
+
+@dataclass
+class AdamState:
+    m: dict      # name → first moment (same shape as the parameter)
+    v: dict      # name → second moment
+    step: int = 0
+
+
+@dataclass
+class ExposureAdamState:
+    m: torch.Tensor
+    v: torch.Tensor
+    step: int = 0
+
+
+def init_adam(params: dict) -> AdamState:
+    return AdamState(m={k: torch.zeros_like(p) for k, p in params.items()},
+                     v={k: torch.zeros_like(p) for k, p in params.items()})
+
+
+def init_exposure_adam(exposure: torch.Tensor) -> ExposureAdamState:
+    return ExposureAdamState(m=torch.zeros_like(exposure),
+                             v=torch.zeros_like(exposure))
+
+
+def make_lr_schedules(opt_args, spatial_lr_scale: float) -> dict:
+    """name → lr(step). Mirrors `training_setup` (`gaussian_model.py:183-211`)."""
+    xyz_sched = get_expon_lr_func(
+        lr_init=opt_args.position_lr_init * spatial_lr_scale,
+        lr_final=opt_args.position_lr_final * spatial_lr_scale,
+        lr_delay_mult=opt_args.position_lr_delay_mult,
+        max_steps=opt_args.position_lr_max_steps)
+    consts = {
+        "features_dc": opt_args.feature_lr,
+        "features_rest": opt_args.feature_lr / 20.0,
+        "opacity": opt_args.opacity_lr,
+        "scaling": opt_args.scaling_lr,
+        "rotation": opt_args.rotation_lr,
+    }
+    scheds = {"xyz": xyz_sched}
+    for k, lr in consts.items():
+        scheds[k] = (lambda lr_: lambda step: float(lr_))(lr)
+    return scheds
+
+
+def make_exposure_schedule(opt_args) -> Callable:
+    return get_expon_lr_func(
+        lr_init=getattr(opt_args, "exposure_lr_init", 0.01),
+        lr_final=getattr(opt_args, "exposure_lr_final", 0.001),
+        lr_delay_steps=getattr(opt_args, "exposure_lr_delay_steps", 0),
+        lr_delay_mult=getattr(opt_args, "exposure_lr_delay_mult", 0.0),
+        max_steps=getattr(opt_args, "iterations", 30000))
+
+
+def _bias_corrections(step: int, device):
+    """1 - β^t in float32, as the JAX update computes them."""
+    t = torch.tensor(float(step), dtype=torch.float32, device=device)
+    b1 = torch.tensor(BETA1, dtype=torch.float32, device=device)
+    b2 = torch.tensor(BETA2, dtype=torch.float32, device=device)
+    return 1.0 - b1 ** t, 1.0 - b2 ** t
+
+
+@torch.no_grad()
+def adam_update(params: dict, grads: dict, state: AdamState, lrs: dict,
+                visibility: Optional[torch.Tensor] = None) -> None:
+    """One Adam step of every group, in place. `lrs`: name → lr for this
+    step. `visibility`: optional (N,) bool mask — rows outside it keep
+    their parameters AND moments (SparseGaussianAdam semantics)."""
+    state.step += 1
+    device = next(iter(params.values())).device
+    bc1, bc2 = _bias_corrections(state.step, device)
+    for k, p in params.items():
+        g = grads[k]
+        m = BETA1 * state.m[k] + (1 - BETA1) * g
+        v = BETA2 * state.v[k] + (1 - BETA2) * (g * g)
+        p_new = p - lrs[k] * (m / bc1) / (torch.sqrt(v / bc2) + EPS)
+        if visibility is not None:
+            vis = visibility.reshape((-1,) + (1,) * (p.ndim - 1))
+            p_new = torch.where(vis, p_new, p)
+            m = torch.where(vis, m, state.m[k])
+            v = torch.where(vis, v, state.v[k])
+        p.copy_(p_new)
+        state.m[k] = m
+        state.v[k] = v
+
+
+@torch.no_grad()
+def exposure_adam_update(exposure: torch.Tensor, grad: torch.Tensor,
+                         state: ExposureAdamState, lr: float) -> None:
+    """Exposure Adam (eps 1e-8, `optim.py:179-186`), in place."""
+    state.step += 1
+    bc1, bc2 = _bias_corrections(state.step, exposure.device)
+    m = BETA1 * state.m + (1 - BETA1) * grad
+    v = BETA2 * state.v + (1 - BETA2) * grad * grad
+    exposure.copy_(exposure - lr * (m / bc1)
+                   / (torch.sqrt(v / bc2) + EXPOSURE_EPS))
+    state.m, state.v = m, v
+
+
+def append_zero_rows(state: AdamState, n_new: int) -> None:
+    """Moments of `n_new` appended rows start at zero (`zero_adam_slots`)."""
+    for d in (state.m, state.v):
+        for k, a in d.items():
+            d[k] = torch.cat([a, a.new_zeros((n_new,) + a.shape[1:])])
+
+
+def select_rows(state: AdamState, keep: torch.Tensor) -> None:
+    """Keep the rows where `keep` is True, in order (`permute_adam` of the
+    stable compaction)."""
+    for d in (state.m, state.v):
+        for k, a in d.items():
+            d[k] = a[keep]
+
+
+def zero_param(state: AdamState, name: str) -> None:
+    state.m[name] = torch.zeros_like(state.m[name])
+    state.v[name] = torch.zeros_like(state.v[name])

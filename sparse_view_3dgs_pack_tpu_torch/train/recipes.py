@@ -1,0 +1,59 @@
+"""Method recipes: a method name → its training procedure.
+
+Counterpart of `sparse_view_3dgs_pack_tpu/train/recipes.py`. Vanilla 3DGS
+is LGDWT with the DWT terms off; both run `simple_train`. The other
+methods are not ported yet and raise, naming their ROADMAP item.
+"""
+
+from __future__ import annotations
+
+import time
+
+from ..scene import Scene
+from .loop import simple_train
+
+NOT_PORTED = {"fsgs": 8, "dngaussian": 9, "mult-dwtgs": 10}
+
+
+def _progress_printer(total):
+    state = {"last": time.time(), "ema": 0.0}
+
+    def cb(it, metrics):
+        if it % 100:
+            return
+        loss = float(metrics["loss"])
+        state["ema"] = 0.4 * loss + 0.6 * state["ema"] if state["ema"] else loss
+        now = time.time()
+        ips = 100 / max(now - state["last"], 1e-9)
+        state["last"] = now
+        print(f"[{it}/{total}] loss={state['ema']:.5f} ({ips:.1f} it/s)",
+              flush=True)
+
+    return cb
+
+
+def train_method(method: str, dataset, opt, pipe, args, device) -> None:
+    if method in NOT_PORTED:
+        raise NotImplementedError(
+            f"--method {method} is not ported to the PyTorch package yet "
+            f"(ROADMAP Queue 1 item {NOT_PORTED[method]})")
+    if method not in ("3dgs", "lgdwt"):
+        raise ValueError(method)
+    scene = Scene(dataset, sh_degree=dataset.sh_degree, device=device)
+    if not getattr(args, "disable_viewer", False):
+        print("[viewer] the network viewer is not ported to the PyTorch "
+              "package yet (ROADMAP Queue 1 item 11); training without it")
+
+    trainer, elapsed = simple_train(
+        scene, opt, pipe, dataset,
+        testing_iterations=set(args.test_iterations),
+        saving_iterations=set(args.save_iterations),
+        progress=_progress_printer(opt.iterations))
+
+    stats = trainer.evaluate(scene.getTestCameras() or
+                             scene.getTrainCameras()[:8])
+    if stats:
+        print(f"\n[ITER {opt.iterations}] Evaluating test: "
+              f"L1 {stats['l1']:.4f} PSNR {stats['psnr']:.2f}")
+    print(f"Training took {elapsed:.1f}s "
+          f"({opt.iterations / max(elapsed, 1e-9):.2f} it/s)")

@@ -125,7 +125,8 @@ def test_n_contrib_matches_pallas_training(scene):
 
 
 def test_wrapper_cpu_runs_plain_version():
-    """A CPU tensor takes the plain version and leaves the launch count."""
+    """A CPU tensor takes the plain version and leaves the launch count, in
+    the inference and the differentiable closure alike."""
     _, tp = _scene("basic")
     ba = bin_gaussians(tp.means2d, tp.depths, tp.radii, W, H, 32, 16)
     before = raster.rasterize_forward.launches
@@ -143,8 +144,11 @@ def test_wrapper_cpu_runs_plain_version():
         raster.rasterize_forward(*args[:3], torch.zeros((tp.colors.shape[0],
                                                          7)),
                                  *args[4:8], torch.zeros(7), W, H, 32, 16)
-    with pytest.raises(NotImplementedError):
-        raster.make_rasterizer(W, H, 3, inference=False)
+    # the differentiable closure: same images, still no launch on the CPU
+    train = raster.make_rasterizer(W, H, 3, inference=False)(*args)
+    for a, b in zip(train, ref):
+        assert torch.equal(a, b)
+    assert raster.rasterize_forward.launches == before
 
 
 @pytest.mark.cuda

@@ -1,10 +1,11 @@
 """Port parity for the render slice as a whole: a JAX `GaussianState`
 carried across with `from_jax_params` renders like the JAX renderer; PLY IO,
 scene readers and metrics agree with the JAX package; the port never
-imports jax."""
+imports jax nor the JAX package."""
 
 import filecmp
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -52,7 +53,8 @@ def _port_model(state):
     return gm.from_jax_params({k: np.asarray(v)
                                for k, v in state.params.items()},
                               int(state.n_alive),
-                              exposure=np.asarray(state.exposure))
+                              exposure=np.asarray(state.exposure),
+                              device="cpu")
 
 
 RENDER_CASES = {
@@ -109,7 +111,7 @@ def test_load_ply_reads_jax_ply(tmp_path):
     state = _jax_state()
     path = str(tmp_path / "point_cloud.ply")
     jax_gm.save_ply(state, path)
-    model = gm.load_ply(path, sh_degree=3, n_images=3)
+    model = gm.load_ply(path, sh_degree=3, n_images=3, device="cpu")
     for name, value in model.params().items():
         np.testing.assert_array_equal(
             value.detach().numpy(),
@@ -196,22 +198,44 @@ m = GaussianModel(c["xyz"], f[:, :1], f[:, 1:], c["scales"], c["quats"],
 cam = testing.make_orbit_cameras(1, radius=3.0, width=40, height_px=24)[0]
 r = renderer.render(m, cam, [0, 0, 0])
 assert r.render.shape == (24, 40, 3) and r.n_pairs > 0
+# the train path: one lgdwt step through the differentiable rasterizer
+import torch
+from sparse_view_3dgs_pack_tpu_torch.train import optim, step
+cam.image = np.zeros((24, 40, 3), np.float32)
+bank = step.CameraBank.from_cameras([cam], device="cpu")
+cfg = step.StepConfig(width=40, height=24, sh_degree=3, dwt_enable=True,
+                      patch_dwt_enable=True, patch_size=8)
+adam, eadam = optim.init_adam(m.params()), optim.init_exposure_adam(m.exposure)
+metrics, _ = step.train_step(m, adam, eadam, torch.ones(()), bank, 0,
+                             {k: 1e-3 for k in m.params()}, 0.0, 0.0, 0,
+                             torch.zeros(3), cfg)
+assert float(metrics["loss"]) > 0 and adam.step == 1
 assert "jax" not in sys.modules, "the port imported jax"
+ref = [k for k in sys.modules if k.split(".")[0] == "sparse_view_3dgs_pack_tpu"]
+assert not ref, f"the port imported the JAX package: {ref}"
 print("NO_JAX_OK")
 """
 
+# an import of the JAX package (not of `..._torch`) in a port source
+_JAX_PKG_IMPORT = re.compile(
+    r"^\s*(from|import)\s+sparse_view_3dgs_pack_tpu(\.|\s|$)", re.M)
+
 
 def test_port_never_imports_jax():
+    """After every port module (CLIs included) is imported and the render
+    and train paths have run, neither jax nor any module of the JAX package
+    is loaded; no port source (nor `chip_smoke.py`) imports either."""
     proc = subprocess.run([sys.executable, "-c", _NO_JAX_SCRIPT], cwd=REPO,
                           env=subprocess_env(), capture_output=True,
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert "NO_JAX_OK" in proc.stdout
     src = os.path.join(REPO, "sparse_view_3dgs_pack_tpu_torch")
+    paths = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, files in os.walk(src):
-        for fname in files:
-            if fname.endswith(".py"):
-                with open(os.path.join(root, fname)) as fh:
-                    text = fh.read()
-                assert "import jax" not in text and "from jax" not in text, \
-                    fname
+        paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    for path in paths:
+        with open(path) as fh:
+            text = fh.read()
+        assert "import jax" not in text and "from jax" not in text, path
+        assert not _JAX_PKG_IMPORT.search(text), path

@@ -1,0 +1,91 @@
+"""The port's training CLI on the CPU: a tiny Blender scene whose images are
+renders of a known cloud, ~30 iterations with densify events, the JAX
+CLI's output tree, read back by the JAX `load_ply` and rendered by the
+port's render CLI; flags that are not ported raise."""
+
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from sparse_view_3dgs_pack_tpu.models import gaussians as jax_gm
+from sparse_view_3dgs_pack_tpu_torch import render as port_render
+from sparse_view_3dgs_pack_tpu_torch import testing
+from sparse_view_3dgs_pack_tpu_torch.train import __main__ as train_cli
+from torch_port import REPO, subprocess_env
+
+ITERS = 30
+INIT_POINTS = 150
+
+_PORT_TRAIN = """
+import runpy, sys
+sys.argv = ["train"] + sys.argv[1:]
+runpy.run_module("sparse_view_3dgs_pack_tpu_torch.train", run_name="__main__")
+assert "jax" not in sys.modules, "the port imported jax"
+"""
+
+
+def _scene(root):
+    cloud = testing.make_gaussian_cloud(7, 300, extent=0.9,
+                                        scale_range=(0.05, 0.15))
+    return testing.write_blender_scene(str(root / "scene"), n_train=6,
+                                       n_test=2, width=48, cloud=cloud,
+                                       init_points=INIT_POINTS)
+
+
+@pytest.mark.timeout(600)
+def test_train_cli_writes_the_jax_tree(tmp_path):
+    scene = _scene(tmp_path)
+    out = str(tmp_path / "out")
+    proc = subprocess.run(
+        [sys.executable, "-c", _PORT_TRAIN, "-s", scene, "-m", out,
+         "--method", "lgdwt", "--device", "cpu", "--eval", "--quiet",
+         "--iterations", str(ITERS), "--patch_size", "16",
+         "--densify_from_iter", "5", "--densification_interval", "10",
+         "--densify_until_iter", "25", "--densify_grad_threshold", "0.0001",
+         "--test_iterations", "30", "--save_iterations", "15"],
+        cwd=REPO, env=subprocess_env(), capture_output=True, text=True,
+        timeout=500)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    for name in ("cfg_args", "input.ply", "cameras.json", "exposure.json"):
+        assert os.path.exists(os.path.join(out, name)), name
+    assert sorted(os.listdir(os.path.join(out, "point_cloud"))) == [
+        "iteration_15", f"iteration_{ITERS}"]
+    with open(os.path.join(out, "cameras.json")) as f:
+        assert len(json.load(f)) == 8
+    with open(os.path.join(out, "exposure.json")) as f:
+        assert len(json.load(f)) == 6
+
+    ply = os.path.join(out, "point_cloud", f"iteration_{ITERS}",
+                       "point_cloud.ply")
+    state = jax_gm.load_ply(ply, sh_degree=3, n_images=6)
+    n = int(state.n_alive)
+    assert n != INIT_POINTS, "no densify event changed the point count"
+    for k, v in state.params.items():
+        assert np.isfinite(np.asarray(v)[:n]).all(), k
+
+    port_render.main(["-m", out, "--device", "cpu", "--skip_train"])
+    renders = os.path.join(out, "test", f"ours_{ITERS}", "renders")
+    assert sorted(os.listdir(renders)) == ["00000.png", "00001.png"]
+
+
+def test_train_cli_refuses_what_is_not_ported(tmp_path):
+    scene = _scene(tmp_path)
+    base = ["-s", scene, "-m", str(tmp_path / "o"), "--device", "cpu",
+            "--iterations", "1"]
+    for extra, match in ((["--method", "fsgs"], "item 8"),
+                         (["--method", "dngaussian"], "item 9"),
+                         (["--method", "mult-dwtgs"], "item 10"),
+                         (["--checkpoint_iterations", "1"], "checkpoint"),
+                         (["--start_checkpoint", "x.npz"], "checkpoint"),
+                         (["--data_parallel", "2"], "data_parallel"),
+                         (["--profile", "trace"], "profile")):
+        with pytest.raises(NotImplementedError, match=match):
+            train_cli.main(base + extra)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="cuda"):
+            train_cli.main(base[:4] + ["--iterations", "1"])
