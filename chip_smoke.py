@@ -6,9 +6,9 @@ card.
 
 Phases, one line each or more, any failure exits non-zero:
   1 device     the card's name and power limit (nvidia-smi)
-  2 build      nvcc-compiles csrc/raster_fwd.cu and csrc/raster_bwd.cu for
-               sm_90a, both at once, into build/kernels/; ptxas registers
-               and spills
+  2 build      nvcc-compiles csrc/raster_fwd.cu, csrc/raster_bwd.cu and
+               csrc/probes.cu for sm_90a, all at once, into build/kernels/;
+               ptxas registers and spills
   3 kernel     the forward kernel against its plain PyTorch version at 64x48
                on the rasterizer test scenes, both instantiations (n_contrib
                and log T_final too), both tile shapes
@@ -24,21 +24,33 @@ Phases, one line each or more, any failure exits non-zero:
                then a torch.profiler run of 3 more steps: device busy share,
                K3's time, and host and device time per stage of the port's
                own record_function ranges
+  resume       the phase-5 state saved as a checkpoint and restored into a
+               fresh Trainer: every array bitwise equal; one more step on
+               the same view from both, losses and parameters bitwise equal
   6 train_cli  `python -m sparse_view_3dgs_pack_tpu_torch.train --method
                lgdwt` on a 400x400 Blender scene rendered from a known cloud,
                densify and opacity reset within the run, then the port's
                render and metrics CLIs: test PSNR at least 5 dB above the
-               starting model's, and the point count changed
+               starting model's, and the point count changed; the same run
+               again with the debug snapshot armed (--debug_from 0) and a
+               checkpoint halfway, resumed from it (--start_checkpoint) to
+               the same end
+  probes       `probes.prims` and `probes.fwd_bisect` through their main();
+               each of the six probe kernels against its plain version;
+               D1 (both instantiations), D2 and the forward kernel against
+               the two-batch blend expectation on the 800x800 training
+               scene and on fwd_bisect's own 800x800 scene, whose pixels
+               reach the ln 1e-4 stop; times and bounds
   7 render     a 200k-Gaussian SH-degree-3 model (saved and re-loaded as PLY)
                rendered from 20 orbit cameras at 1920x1080 through
                renderer.render; frame 0 against the plain version; timings
   8 cli        render + metrics CLIs on an 800x800 Blender-layout scene whose
                ground truth is the plain version's render
-Each path (train, render) is driven with the kernels' launch counts set to
-0 just before it and read just after; launches made to compare a kernel
-with its plain version are not counted. The line before the last is a JSON
-summary of the kernels, one entry per (kernel, path); the last line is
-{"ok": true, "device": {"platform": "gpu", ...}}.
+Each path (train, probes, render) is driven with the kernels' launch
+counts set to 0 just before it and read just after; launches made to
+compare a kernel with its plain version are not counted. The line before
+the last is a JSON summary of the kernels, one entry per (kernel, path);
+the last line is {"ok": true, "device": {"platform": "gpu", ...}}.
 Imports no jax and nothing of the JAX package.
 """
 
@@ -67,7 +79,15 @@ KERNELS = {   # name → (source, the TPU kernel or JAX reduction it replaces)
                    "sparse_view_3dgs_pack_tpu/ops/pallas/raster_bwd.py:83"),
     "segment_sum": (f"{CSRC}/raster_bwd.cu",
                     "sparse_view_3dgs_pack_tpu/ops/pallas/raster_vjp.py:131"),
+    "probe_tile_coords": (f"{CSRC}/probes.cu", "scripts/tpu_prims.py:18"),
+    "probe_row_cumsum": (f"{CSRC}/probes.cu", "scripts/tpu_prims.py:44"),
+    "probe_offset_copy": (f"{CSRC}/probes.cu", "scripts/tpu_prims.py:68"),
+    "probe_pair_alpha": (f"{CSRC}/probes.cu", "scripts/tpu_prims.py:93"),
+    "probe_tile_alpha": (f"{CSRC}/probes.cu", "scripts/tpu_dbg.py:54"),
+    "probe_tile_blend": (f"{CSRC}/probes.cu", "scripts/tpu_dbg.py:141"),
 }
+TRAIN_KERNELS = ("raster_fwd", "raster_bwd", "segment_sum")
+PROBE_KERNELS = tuple(k for k in KERNELS if k.startswith("probe_"))
 SMALL_TOL = 1e-5     # phases 3-4 at 64x48: abs (depth, gradients: relative
 FULL_TOL = 1e-4      # to the largest); 1080p / 800p: sums in another order
 # at 800p a pixel whose log T lands within rounding of ln 1e-4 may stop one
@@ -105,6 +125,28 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int) -> float:
+    """Mean device milliseconds per call of `fn` over `reps` calls: the
+    summed durations of the CUDA kernels (and copies) it runs, from a
+    torch.profiler trace. For a call so short that the host cannot launch
+    it as fast as the card runs it, CUDA events around a run of calls time
+    the host instead."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not dev:
+        raise AssertionError("the profiler recorded no device activity")
+    return sum(e.time_range.end - e.time_range.start
+               for e in dev) / 1e3 / reps
 
 
 def bound(n_bytes: float, n_ops: float):
@@ -149,10 +191,16 @@ def max_errs(out, ref) -> dict:
 
 
 def _counters():
-    from sparse_view_3dgs_pack_tpu_torch.ops import raster
+    from sparse_view_3dgs_pack_tpu_torch.ops import probes, raster
     return {"raster_fwd": raster.rasterize_forward,
             "raster_bwd": raster.rasterize_backward,
-            "segment_sum": raster.pairs_to_gaussians}
+            "segment_sum": raster.pairs_to_gaussians,
+            "probe_tile_coords": probes.tile_coords,
+            "probe_row_cumsum": probes.row_cumsum,
+            "probe_offset_copy": probes.offset_copy,
+            "probe_pair_alpha": probes.pair_alpha,
+            "probe_tile_alpha": probes.tile_alpha,
+            "probe_tile_blend": probes.tile_blend}
 
 
 def reset_counts() -> None:
@@ -180,10 +228,10 @@ def phase_device() -> str:
 
 
 def phase_build() -> None:
-    """Both sources through nvcc at once, one process each."""
+    """Every source through nvcc at once, one process each."""
     from sparse_view_3dgs_pack_tpu_torch.ops import _build
     t0 = time.perf_counter()
-    names = ("raster_fwd", "raster_bwd")
+    names = ("raster_fwd", "raster_bwd", "probes")
     with ThreadPoolExecutor(len(names)) as pool:
         built = dict(zip(names, pool.map(_build.build, names)))
     secs = time.perf_counter() - t0
@@ -195,7 +243,7 @@ def phase_build() -> None:
                      + (f"; ptxas: {len(regs)} kernels, registers "
                         f"{min(regs)}-{max(regs)}, {spills} spill bytes"
                         if regs else " (already built)"))
-    log("build", f"both sources in {secs:.1f} s")
+    log("build", f"{len(names)} sources in {secs:.1f} s")
 
 
 def _model(cloud):
@@ -624,8 +672,23 @@ def _profile_line(prof: dict, what: str) -> str:
                         for k, (h, d) in prof["stages"].items()))
 
 
-def phase_train(device) -> dict:
-    """The main path of the training slice: `train_step` at full width."""
+class Trained(NamedTuple):
+    """Phase 5's training state after its steps, for the resume phase."""
+    model: object
+    adam: object
+    exp_adam: object
+    running: torch.Tensor
+    cams: list
+    bank: object
+    cfg: object
+    lrs: dict
+    bg: torch.Tensor
+    iteration: int
+
+
+def phase_train(device):
+    """The main path of the training slice: `train_step` at full width.
+    Returns the path's kernel entries and the state it left."""
     from sparse_view_3dgs_pack_tpu_torch.train import optim, step
     model, cams, bank, cfg, init_s = _train_setup(device)
     log("train", f"create_from_pcd of {TRAIN_N} points on the card (exact "
@@ -672,9 +735,9 @@ def phase_train(device) -> dict:
                  f"max {max(ev_ms):.3f}); pairs median "
                  f"{int(np.median(pairs))}; peak {peak_gib:.3f} GiB; "
                  f"launches {counts}")
-    for name, n in counts.items():
-        if n != TIMED_STEPS:
-            raise AssertionError(f"{name} launched {n} times in "
+    for name in TRAIN_KERNELS:
+        if counts[name] != TIMED_STEPS:
+            raise AssertionError(f"{name} launched {counts[name]} times in "
                                  f"{TIMED_STEPS} train steps")
     log("train", "loss over the timed steps (fixed view): "
                  + " ".join(f"{v:.5f}" for v in losses))
@@ -693,12 +756,14 @@ def phase_train(device) -> dict:
                      f"busy time")
     for name in kernels:
         kernels[name]["launches"] = counts[name]
-    return kernels
+    return kernels, Trained(model, adam, eadam, running, cams, bank, cfg, lrs,
+                            bg, adam.step)
 
 
-def phase_train_cli(work: str, device) -> None:
+def phase_train_cli(work: str, device):
     """The training CLI on a Blender scene rendered from a known cloud, then
-    the render and metrics CLIs on its output."""
+    the render and metrics CLIs on its output. Returns the scene directory
+    and the training run's it/s."""
     from sparse_view_3dgs_pack_tpu_torch import testing
     from sparse_view_3dgs_pack_tpu_torch.data import readers
     from sparse_view_3dgs_pack_tpu_torch.data.camera_utils import \
@@ -740,6 +805,7 @@ def phase_train_cli(work: str, device) -> None:
     for line in proc.stdout.splitlines():
         if "Evaluating" in line or "Training took" in line:
             log("train_cli", line.strip())
+    ips = _its_per_s(proc.stdout)
     log("train_cli", f"python -m sparse_view_3dgs_pack_tpu_torch.train ok "
                      f"in {time.perf_counter() - t0:.1f} s")
     for mod, extra in (("render", ["--skip_train"]), ("metrics", [])):
@@ -765,6 +831,359 @@ def phase_train_cli(work: str, device) -> None:
                              f"dB, less than 5")
     if n_end == CLI_INIT_POINTS:
         raise AssertionError("the point count did not change")
+    return scene, ips
+
+
+def _its_per_s(stdout: str) -> float:
+    m = re.search(r"Training took [0-9.]+s for \d+ iterations \(([0-9.]+) "
+                  r"it/s\)", stdout)
+    if m is None:
+        raise AssertionError(f"no 'Training took' line:\n{stdout[-2000:]}")
+    return float(m.group(1))
+
+
+class _Scene:
+    """What `Trainer` reads of a `Scene`: the model, the training cameras
+    and their extent, and the model directory."""
+
+    def __init__(self, gaussians, cams, model_path: str):
+        self.gaussians, self.cams = gaussians, cams
+        self.model_path = model_path
+        self.cameras_extent = 6.0     # the orbit radius of the cameras
+
+    def getTrainCameras(self):
+        return self.cams
+
+    def getTestCameras(self):
+        return []
+
+
+def _fresh_trainer(cams, work: str, device):
+    """A `Trainer` with the CLI's default lgdwt options over the training
+    cameras, its model a 1000-point stand-in for a restore to replace."""
+    from argparse import ArgumentParser
+    from sparse_view_3dgs_pack_tpu_torch.config import (ModelParams,
+                                                        OptimizationParams,
+                                                        PipelineParams)
+    from sparse_view_3dgs_pack_tpu_torch.models import gaussians as gm
+    from sparse_view_3dgs_pack_tpu_torch.train.loop import Trainer
+    parser = ArgumentParser()
+    lp = ModelParams(parser)
+    op = OptimizationParams(parser, method="lgdwt")
+    pp = PipelineParams(parser)
+    args = parser.parse_args(["-m", work])
+    rng = np.random.default_rng(1)
+    stand_in = gm.create_from_pcd(rng.uniform(-2, 2, (1000, 3)),
+                                  rng.random((1000, 3)), n_images=len(cams),
+                                  sh_degree=3, device=device)
+    return Trainer(_Scene(stand_in, cams, work), op.extract(args),
+                   pp.extract(args), lp.extract(args))
+
+
+def _state_arrays(model, adam, exp_adam, running) -> dict:
+    from sparse_view_3dgs_pack_tpu_torch.models.gaussians import (PARAM_NAMES,
+                                                                  STAT_NAMES)
+    out = {k: getattr(model, k) for k in PARAM_NAMES + STAT_NAMES
+           + ("exposure",)}
+    for m in ("m", "v"):
+        out.update({f"adam.{m}.{k}": getattr(adam, m)[k]
+                    for k in PARAM_NAMES})
+        out[f"exp_adam.{m}"] = getattr(exp_adam, m)
+    out["dwt_running_mean"] = running
+    return out
+
+
+def _unequal(a: dict, b: dict) -> dict:
+    """name → largest |a - b| where the two arrays are not bitwise equal."""
+    return {k: (float((a[k].detach().double() - b[k].detach().double())
+                      .abs().max()) if a[k].shape == b[k].shape
+                else float("inf"))
+            for k in a if not torch.equal(a[k], b[k])}
+
+
+def phase_resume(tr: Trained, work: str, device) -> None:
+    """Phase 5's state through a checkpoint into a fresh `Trainer`: bitwise
+    the same arrays, and one more step from each bitwise the same."""
+    from sparse_view_3dgs_pack_tpu_torch.train import checkpoint, step
+    path = os.path.join(work, f"chkpnt{tr.iteration}.npz")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    checkpoint.save_checkpoint(path, tr.model, tr.adam, tr.exp_adam,
+                               tr.running, tr.iteration)
+    save_s = time.perf_counter() - t0
+    trainer = _fresh_trainer(tr.cams, work, device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.restore_checkpoint(path)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    saved = _state_arrays(tr.model, tr.adam, tr.exp_adam, tr.running)
+    bad = _unequal(_state_arrays(trainer.model, trainer.adam,
+                                 trainer.exp_adam, trainer.dwt_running_mean),
+                   saved)
+    steps = (trainer.iteration, trainer.adam.step, trainer.exp_adam.step)
+    log("resume", f"checkpoint of {tr.model.num_points} Gaussians at "
+                  f"iteration {tr.iteration}: saved in {save_s:.3f} s, "
+                  f"{os.path.getsize(path) / 2 ** 20:.1f} MiB; restored "
+                  f"into a fresh Trainer in {load_s:.3f} s; {len(saved)} "
+                  f"arrays bitwise equal: {not bad}; steps {steps}")
+    if bad or steps != (tr.iteration, tr.adam.step, tr.exp_adam.step):
+        raise AssertionError(f"restored state differs: {bad}, steps {steps}")
+
+    # one more step on view 0 from each; cuDNN may otherwise pick a
+    # convolution backward that adds with atomics
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        losses = []
+        for model, adam, exp_adam, running, bank in (
+                (tr.model, tr.adam, tr.exp_adam, tr.running, tr.bank),
+                (trainer.model, trainer.adam, trainer.exp_adam,
+                 trainer.dwt_running_mean, trainer.bank)):
+            metrics, new_running = step.train_step(
+                model, adam, exp_adam, running, bank, 0, tr.lrs, 0.0, 0.0, 3,
+                tr.bg, tr.cfg)
+            losses.append((metrics["loss"], new_running))
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    bad = _unequal(_state_arrays(trainer.model, trainer.adam,
+                                 trainer.exp_adam, losses[1][1]),
+                   _state_arrays(tr.model, tr.adam, tr.exp_adam,
+                                 losses[0][1]))
+    same_loss = torch.equal(losses[0][0], losses[1][0])
+    log("resume", f"one more step on view 0 from both: loss "
+                  f"{float(losses[0][0]):.7f} / {float(losses[1][0]):.7f}, "
+                  f"bitwise equal: {same_loss}; updated state bitwise "
+                  f"equal: {not bad}")
+    if bad or not same_loss:
+        raise AssertionError(f"the restored trainer's step differs: {bad}")
+
+
+def phase_resume_cli(work: str, scene: str, plain_ips: float) -> None:
+    """Phase 6's training run again with the debug snapshot armed and a
+    checkpoint halfway, then resumed from that checkpoint to the end."""
+    out = os.path.join(work, "resume_out")
+    half = CLI_ITERS // 2
+    ckpt = os.path.join(out, f"chkpnt{half}.npz")
+    base = [sys.executable, "-m", "sparse_view_3dgs_pack_tpu_torch.train",
+            "-s", scene, "-m", out, "--method", "lgdwt", "--disable_viewer",
+            "--eval", "--iterations", str(CLI_ITERS),
+            "--densify_from_iter", "100", "--densification_interval", "50",
+            "--densify_until_iter", "450", "--opacity_reset_interval", "250",
+            "--test_iterations", str(CLI_ITERS)]
+    ips = {}
+    for label, extra in (
+            ("debug armed", ["--debug_from", "0", "--checkpoint_iterations",
+                             str(half)]),
+            ("resumed", ["--start_checkpoint", ckpt])):
+        t0 = time.perf_counter()
+        proc = subprocess.run(base + extra, cwd=REPO, capture_output=True,
+                              text=True)
+        if proc.returncode != 0:
+            raise AssertionError(f"train CLI ({label}) failed (rc="
+                                 f"{proc.returncode}):\n{proc.stdout[-3000:]}"
+                                 f"\n{proc.stderr[-3000:]}")
+        ips[label] = _its_per_s(proc.stdout)
+        for line in proc.stdout.splitlines():
+            if "Evaluating" in line or "Resumed" in line \
+                    or "Training took" in line:
+                log("resume", f"{label}: {line.strip()}")
+        log("resume", f"{label}: train CLI ok in "
+                      f"{time.perf_counter() - t0:.1f} s")
+        if label == "resumed" and f"(iteration {half})" not in proc.stdout:
+            raise AssertionError("the resumed run did not start from the "
+                                 "checkpoint")
+    if os.path.exists(os.path.join(out, "snapshot_fw.npz")):
+        raise AssertionError("the debug snapshot fired on a finite run")
+    if not os.path.exists(os.path.join(out, "point_cloud",
+                                       f"iteration_{CLI_ITERS}",
+                                       "point_cloud.ply")):
+        raise AssertionError("the resumed run wrote no final point cloud")
+    log("resume", f"train CLI it/s at {CLI_W}x{CLI_W}: plain "
+                  f"{plain_ips:.2f} (phase 6), debug armed "
+                  f"{ips['debug armed']:.2f} (one host sync per step), "
+                  f"resumed from {half} {ips['resumed']:.2f}")
+
+
+def _probe_small(device) -> dict:
+    """P1-P4 against their plain versions on the inputs of
+    `scripts/tpu_prims.py`, with device times (profiler: a call of a few
+    microseconds on the card takes longer to launch from Python), the
+    wall time per call, and bounds."""
+    from sparse_view_3dgs_pack_tpu_torch.ops import probes
+    from sparse_view_3dgs_pack_tpu_torch.probes import prims
+    out = {}
+
+    def entry(name, kernel, plain, err, bar, n_bytes, n_ops, lib=None,
+              shape=""):
+        if not err <= bar:
+            raise AssertionError(f"{name}: {err:.3g} from its plain version "
+                                 f"(bar {bar:g})")
+        ms = device_ms(kernel, 50)
+        plain_ms = device_ms(plain, 20)
+        library_ms = None if lib is None else device_ms(lib, 50)
+        call_ms = cuda_ms(kernel, 200)
+        b = bound(n_bytes, n_ops)
+        out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         bound_ms=b[0], bound_by=b[1], library_ms=library_ms,
+                         call_ms=call_ms, shape=shape)
+        log("probes", f"{name} ({shape}): vs plain {err:.3g} (bar {bar:g}); "
+                      f"device {ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} "
+                      f"us" + ("" if lib is None else
+                               f", torch.cumsum {library_ms * 1e3:.2f} us")
+                      + f", bound {b[0] * 1e3:.4f} us by {b[1]}; "
+                        f"{call_ms * 1e3:.2f} us per call from Python")
+
+    tiles = (8, 4, device)
+    got, want = probes.tile_coords(*tiles), probes.tile_coords_torch(*tiles)
+    entry("probe_tile_coords", lambda: probes.tile_coords(*tiles),
+          lambda: probes.tile_coords_torch(*tiles),
+          0.0 if torch.equal(got, want) else float("inf"), 0.0,
+          got.numel() * 4, 0, shape="8 tiles, 4 across")
+
+    x = torch.as_tensor(prims.scan_input(), device=device)
+    err = float((probes.row_cumsum(x) - probes.row_cumsum_torch(x))
+                .abs().max())
+    entry("probe_row_cumsum", lambda: probes.row_cumsum(x),
+          lambda: probes.row_cumsum_torch(x), err, 1e-4, 2 * x.numel() * 4,
+          x.shape[0] * (x.shape[1] - 1), lib=lambda: torch.cumsum(x, 1),
+          shape="256 x 256")
+
+    data, starts = (torch.as_tensor(a, device=device)
+                    for a in prims.copy_input())
+    got = probes.offset_copy(data, starts)
+    want = probes.offset_copy_torch(data, starts)
+    src = torch.zeros(data.shape[1], dtype=torch.bool)
+    for s0 in prims.COPY_STARTS:
+        src[s0:s0 + probes.CHUNK] = True
+    entry("probe_offset_copy", lambda: probes.offset_copy(data, starts),
+          lambda: probes.offset_copy_torch(data, starts),
+          0.0 if torch.equal(got, want) else float("inf"), 0.0,
+          (data.shape[0] * int(src.sum()) + starts.numel() + got.numel()) * 4,
+          0, shape="8 slices of (16, 8192)")
+
+    d = torch.as_tensor(prims.alpha_input(), device=device)
+    err = float((probes.pair_alpha(d) - probes.pair_alpha_torch(d))
+                .abs().max())
+    n = d.shape[1]
+    entry("probe_pair_alpha", lambda: probes.pair_alpha(d),
+          lambda: probes.pair_alpha_torch(d), err, 1e-6,
+          (6 * n + probes.PIX * n) * 4, probes.PIX * n * (SKIP_OPS - 2),
+          shape="256 pixels x 256 pairs")
+    return out
+
+
+def _probe_full(device) -> dict:
+    """D1 (both instantiations), D2 and the forward kernel against plain
+    versions on the 800x800 training scene, then D1's and D2's times and
+    bounds there."""
+    from sparse_view_3dgs_pack_tpu_torch.ops import probes
+    from sparse_view_3dgs_pack_tpu_torch.ops.binning import bin_gaussians
+    from sparse_view_3dgs_pack_tpu_torch.probes import fwd_bisect
+    W, H, T = TRAIN_W, TRAIN_H, probes.TILE
+    model, cams = _train_setup(device)[:2]
+    proj = _project_model(model, cams[0], sh_degree=3)
+    ba = bin_gaussians(proj.means2d, proj.depths, proj.rect_radii, W, H, T, T)
+    counts = ba.tile_counts
+    log("probes", f"{W}x{H} training scene: {ba.total_pairs} pairs in "
+                  f"{counts.shape[0]} tiles, at most {int(counts.max())} per "
+                  f"tile; {int((counts > probes.CHUNK).sum())} tiles hold "
+                  f"more than one batch, {int((counts <= 512).sum())} at "
+                  f"most two")
+    res = fwd_bisect.bisect(proj, ba, W, H, tol=FULL_TOL,
+                            flip_fraction=FLIP_FRACTION,
+                            log=lambda m: log("probes", m))
+    if not res["ok"]:
+        raise AssertionError(f"{W}x{H} probes against plain versions: {res}")
+
+    args = fwd_bisect.pair_args(proj, ba)
+    m2, _, con, col, op, ids, st, cn = args
+    geo = (m2, con, op, ids, st, cn, W, H)
+    t_d1 = cuda_ms(lambda: probes.tile_alpha(*geo), 10)
+    t_walk = cuda_ms(lambda: probes.tile_alpha(*geo, walk_all=True), 10)
+    t_d1_plain = cuda_ms(lambda: probes.tile_alpha_torch(*geo), 2)
+    t_d2 = cuda_ms(lambda: probes.tile_blend(*args, W, H), 10)
+    t_d2_plain = cuda_ms(lambda: probes.tile_blend_torch(*args, W, H), 2)
+
+    # what this run's data asks of D1 and D2: each tile's first
+    # m = min(count, 256) lanes; D2 evaluates a pixel's lanes up to its
+    # stop (the first m if it does not stop) and the lane that stops it
+    P, C, NT = m2.shape[0], col.shape[1], cn.shape[0]
+    lanes_t = cn.to(torch.int64).clamp(max=probes.CHUNK)
+    n_lanes = int(lanes_t.sum())
+    out_bytes = NT * probes.PIX * probes.CHUNK * 4
+    pair_bytes = n_lanes * 4 + 2 * NT * 4
+    b1 = bound(P * 6 * 4 + pair_bytes + out_bytes,
+               n_lanes * probes.PIX * SKIP_OPS)
+    alpha = probes.tile_alpha(*geo)
+    nc = probes.tile_blend(*args, W, H)[..., 9].to(torch.int64)
+    evals = torch.minimum(nc, lanes_t[:, None])
+    before = (torch.arange(probes.CHUNK, device=device)[None, None, :]
+              < evals[..., None])
+    skipped = int(((alpha == 0) & before).sum())
+    del alpha, before
+    n_eval = int(evals.sum())
+    stops = int((nc < probes.CHUNK).sum())
+    b2 = bound(P * (6 + C + 1) * 4 + pair_bytes + out_bytes,
+               (n_eval - skipped) * fwd_ops_per_contrib(C)
+               + skipped * SKIP_OPS + stops * (SKIP_OPS + 3))
+    log("probes", f"{W}x{H} D1: {t_d1:.3f} ms, with the walk {t_walk:.3f} ms"
+                  f", plain {t_d1_plain:.1f} ms, bound {b1[0]:.4f} ms by "
+                  f"{b1[1]} ({n_lanes} lanes x 256 pixels)")
+    log("probes", f"{W}x{H} D2: {t_d2:.3f} ms, plain {t_d2_plain:.1f} ms, "
+                  f"bound {b2[0]:.4f} ms by {b2[1]} ({n_eval} evaluations "
+                  f"before the stops, {skipped} skipped, {stops} pixels "
+                  f"stop)")
+    shape = f"{W}x{H}, {NT} tiles, {ba.total_pairs} pairs"
+    del model, proj, ba, args, geo
+    torch.cuda.empty_cache()
+
+    # the probes' own scene at the same size: opaque enough that pixels
+    # reach the ln 1e-4 stop inside the first batch
+    proj, ba = fwd_bisect.build_scene(W, H, TRAIN_N, device)
+    log("probes", f"{W}x{H} fwd_bisect scene, {TRAIN_N} Gaussians: "
+                  f"{ba.total_pairs} pairs, at most "
+                  f"{int(ba.tile_counts.max())} per tile")
+    res_stop = fwd_bisect.bisect(proj, ba, W, H, tol=FULL_TOL,
+                                 flip_fraction=FLIP_FRACTION,
+                                 log=lambda m: log("probes", m))
+    if not res_stop["ok"] or not res_stop["tile_blend_stops"]:
+        raise AssertionError(f"{W}x{H} fwd_bisect scene: {res_stop}")
+    del proj, ba
+    torch.cuda.empty_cache()
+    return {
+        "probe_tile_alpha": dict(
+            max_abs_err=res["tile_alpha"], ms=t_d1, walk_ms=t_walk,
+            plain_ms=t_d1_plain, bound_ms=b1[0], bound_by=b1[1],
+            library_ms=None, shape=shape),
+        "probe_tile_blend": dict(
+            max_abs_err=res["tile_blend"], ms=t_d2, plain_ms=t_d2_plain,
+            bound_ms=b2[0], bound_by=b2[1], library_ms=None, shape=shape)}
+
+
+def phase_probes(device, train_fwd: dict) -> dict:
+    """The probe path: its two entry points as a user runs them, then each
+    kernel against its plain version, timed. Returns the path's kernel
+    entries (the forward kernel's numbers are phase 4's at 800p)."""
+    from sparse_view_3dgs_pack_tpu_torch.probes import fwd_bisect, prims
+    reset_counts()
+    rc = (prims.main([]), fwd_bisect.main([]))
+    torch.cuda.synchronize()
+    counts = read_counts()
+    used = {k: counts[k] for k in PROBE_KERNELS + ("raster_fwd",)}
+    log("probes", f"prims.main() -> {rc[0]}, fwd_bisect.main() -> {rc[1]}; "
+                  f"launches {used}")
+    if rc != (0, 0):
+        raise AssertionError(f"the probe entry points exited {rc}")
+    if not all(used.values()):
+        raise AssertionError(f"a kernel of the probe path never ran: {used}")
+    entries = _probe_small(device)
+    entries.update(_probe_full(device))
+    entries["raster_fwd"] = dict(train_fwd)
+    for name, entry in entries.items():
+        entry["launches"] = used[name]
+    return entries
 
 
 def phase_render(device, work: str):
@@ -940,8 +1359,13 @@ def main() -> None:
     work = os.path.join(REPO, "build", "chip_smoke")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
-    paths = {"train": phase_train(device)}
-    phase_train_cli(work, device)
+    paths = {}
+    paths["train"], trained = phase_train(device)
+    phase_resume(trained, work, device)
+    del trained
+    scene, ips = phase_train_cli(work, device)
+    phase_resume_cli(work, scene, ips)
+    paths["probes"] = phase_probes(device, paths["train"]["raster_fwd"])
     ply, paths["render"] = phase_render(device, work)
     phase_cli(ply, work)
     if "jax" in sys.modules or any(
@@ -951,7 +1375,8 @@ def main() -> None:
     log("done", f"all phases in {time.perf_counter() - t_start:.1f} s")
     print(card)
     # one entry per (kernel, path): launches, times and bound at that
-    # path's own shape (train 800x800 16x16 tiles, render 1080p 32x16)
+    # path's own shape (train 800x800 16x16 tiles, render 1080p 32x16,
+    # probes: the shape each entry names)
     print(json.dumps({"kernels": [
         {"name": name, "path": path, "route": "cuda",
          "source": KERNELS[name][0], "replaces": KERNELS[name][1], **entry}

@@ -14,12 +14,16 @@ Layout:
                 the exact 3-NN scale init, and the tile rasterizer: forward
                 and backward hand-written CUDA kernels (`csrc/raster_fwd.cu`,
                 `csrc/raster_bwd.cu`) beside their plain PyTorch versions,
-                joined by a `torch.autograd.Function`
+                joined by a `torch.autograd.Function`; the probe kernels
+                (`csrc/probes.cu`, `ops/probes.py`)
+  probes/       `python -m ...probes.prims|fwd_bisect`: bisect a rasterizer
+                fault on the card down to its primitive
   models/       GaussianModel (nn.Module), create_from_pcd, PLY IO, the JAX
                 state bridge
   renderer.py   render_core (inference and training) / render
   losses/       L1, SSIM, Haar-DWT subbands, ELF patch DWT, depth L1
-  train/        step, per-group Adam, densification, Trainer, recipes;
+  train/        step, per-group Adam, densification, Trainer, recipes,
+                checkpoints, the debug snapshot;
                 `python -m sparse_view_3dgs_pack_tpu_torch.train`
   data/, scene.py   scene readers, cameras, Scene (load and init/save)
   metrics/      SSIM and PSNR; `python -m ...metrics` is the CLI

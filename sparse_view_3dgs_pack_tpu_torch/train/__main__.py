@@ -9,9 +9,14 @@ Flag-compatible with the root `train.py` (reference `LGDWT-GS/train.py:
 `cameras.json`, `point_cloud/iteration_N/point_cloud.ply`,
 `exposure.json`. `--device cuda` (the default; never falls back) trains
 through the CUDA rasterizer kernels, `--device cpu` through their plain
-PyTorch versions. Not ported yet, and raising NotImplementedError:
-`--method fsgs|dngaussian|mult-dwtgs`, `--checkpoint_iterations`,
-`--start_checkpoint`, `--data_parallel` other than 1, `--profile`.
+PyTorch versions. `--checkpoint_iterations N ...` writes
+`<model_path>/chkpnt<N>.npz` (the JAX package's layout; either package
+resumes from the other's), `--start_checkpoint <file>` resumes from one,
+and `--debug_from N` (or `--debug`) arms the debug snapshot: from
+iteration N each step's loss is read on the host and a non-finite one
+writes `<model_path>/snapshot_fw.npz` and stops the run. Not ported yet,
+and raising NotImplementedError: `--method fsgs|dngaussian|mult-dwtgs`,
+`--data_parallel` other than 1, `--profile`.
 """
 
 from __future__ import annotations
@@ -34,8 +39,6 @@ def _check_ported(args) -> None:
             f"--method {args.method} is not ported to the PyTorch package "
             f"yet (ROADMAP Queue 1 item {NOT_PORTED[args.method]})")
     for flag, bad, item in (
-            ("--checkpoint_iterations", bool(args.checkpoint_iterations), 5),
-            ("--start_checkpoint", bool(args.start_checkpoint), 5),
             ("--data_parallel", args.data_parallel not in ("1", "off", ""),
              12),
             ("--profile", bool(args.profile), 7)):

@@ -4,12 +4,15 @@ Counterpart of `sparse_view_3dgs_pack_tpu/train/loop.py:116-574` without
 what exists for XLA's static shapes or the TPU mesh: no data parallelism,
 no speculative compiler, no capacity or pair buckets, no lagged pair-count
 readback. The loop samples cameras without replacement, evaluates the LR
-schedules, runs `train_step`, and fires the host events: densify / clone /
-split / prune, opacity reset, SH-degree growth, eval, save.
+schedules, runs `train_step`, checks the step when debugging is armed
+(`train/debug.py`), and fires the host events: densify / clone / split /
+prune, opacity reset, SH-degree growth, eval, save, checkpoint
+(`train/checkpoint.py`).
 """
 
 from __future__ import annotations
 
+import os
 import random
 import time
 from typing import Callable, Optional
@@ -21,6 +24,8 @@ from ..losses.ssim import ssim as ssim_fn
 from ..renderer import render
 from ..utils.general import get_expon_lr_func
 from ..utils.image import psnr as psnr_fn
+from . import checkpoint as ckpt
+from . import debug
 from .densify import densify_and_prune, reset_opacity
 from .optim import (init_adam, init_exposure_adam, make_exposure_schedule,
                     make_lr_schedules)
@@ -74,6 +79,7 @@ class Trainer:
         self.exp_adam = init_exposure_adam(self.model.exposure)
         self.dwt_running_mean = torch.ones((), device=self.device)
         self.iteration = 0
+        self.start_iteration = 0      # where this run began (a checkpoint's)
         self.active_sh_degree = 0
         self.lr_scheds = make_lr_schedules(opt, scene.cameras_extent)
         self.exposure_sched = make_exposure_schedule(opt)
@@ -121,10 +127,17 @@ class Trainer:
         bg = (torch.as_tensor(np.random.random(self.channels),
                               dtype=torch.float32, device=self.device)
               if getattr(o, "random_background", False) else self.background)
+        cam_idx = self.pick_camera()
         metrics, self.dwt_running_mean = train_step(
             self.model, self.adam, self.exp_adam, self.dwt_running_mean,
-            self.bank, self.pick_camera(), lrs, self.exposure_sched(it),
+            self.bank, cam_idx, lrs, self.exposure_sched(it),
             self.depth_weight_sched(it), self.active_sh_degree, bg, self.cfg)
+
+        # snapshot on a non-finite loss (the reference's CHECK_CUDA dump)
+        debug.check_step(self.pipe, it, metrics, self.model,
+                         getattr(self.dataset_args, "model_path", "."),
+                         {"cam_idx": cam_idx,
+                          "active_sh_degree": self.active_sh_degree})
 
         # densification events (reference train.py:265-276)
         if it < o.densify_until_iter:
@@ -150,15 +163,38 @@ class Trainer:
         self.scene.gaussians = self.model
         self.scene.save(iteration)
 
+    def save_checkpoint(self, path: str):
+        ckpt.save_checkpoint(path, self.model, self.adam, self.exp_adam,
+                             self.dwt_running_mean, self.iteration)
+
+    def restore_checkpoint(self, path: str):
+        """Model, optimizer states, DWT running mean and iteration from a
+        checkpoint of either package; the active SH degree follows the
+        iteration (`loop.py:504-510`)."""
+        c = ckpt.load_checkpoint(path, self.device)
+        self.model = self.scene.gaussians = c.model
+        self.adam, self.exp_adam = c.adam, c.exp_adam
+        self.dwt_running_mean, self.iteration = c.dwt_running_mean, c.iteration
+        self.start_iteration = c.iteration
+        self.active_sh_degree = min(self.iteration // 1000,
+                                    self.dataset_args.sh_degree)
+
 
 def simple_train(scene, opt, pipe, dataset_args, testing_iterations=(),
-                 saving_iterations=(), progress: Optional[Callable] = None,
-                 tb: bool = True):
-    """The training loop of `loop.py:513-574` (checkpoints are not ported:
-    ROADMAP Queue 1 item 5)."""
+                 saving_iterations=(), checkpoint_iterations=(),
+                 start_checkpoint: Optional[str] = None,
+                 progress: Optional[Callable] = None, tb: bool = True):
+    """The training loop of `loop.py:513-574`: resumes from
+    `start_checkpoint` when given, evaluates at `testing_iterations`,
+    saves the PLY at `saving_iterations` and a checkpoint
+    (`<model_path>/chkpnt<N>.npz`) at `checkpoint_iterations`."""
     from .logging import TrainReporter
 
     trainer = Trainer(scene, opt, pipe, dataset_args)
+    if start_checkpoint:
+        trainer.restore_checkpoint(start_checkpoint)
+        print(f"Resumed from {start_checkpoint} "
+              f"(iteration {trainer.iteration})")
     reporter = TrainReporter(scene.model_path, enabled=tb)
     t0 = time.time()
     last = t0
@@ -192,5 +228,9 @@ def simple_train(scene, opt, pipe, dataset_args, testing_iterations=(),
         if it in saving_iterations:
             print(f"\n[ITER {it}] Saving Gaussians")
             trainer.save_scene(it)
+        if it in checkpoint_iterations:
+            print(f"\n[ITER {it}] Saving Checkpoint")
+            trainer.save_checkpoint(
+                os.path.join(scene.model_path, f"chkpnt{it}.npz"))
     reporter.close()
     return trainer, time.time() - t0

@@ -39,6 +39,8 @@ def train_method(method: str, dataset, opt, pipe, args, device) -> None:
             f"(ROADMAP Queue 1 item {NOT_PORTED[method]})")
     if method not in ("3dgs", "lgdwt"):
         raise ValueError(method)
+    # arm the debug snapshot from --debug_from (`train/debug.py`)
+    pipe.debug_from = getattr(args, "debug_from", -1)
     scene = Scene(dataset, sh_degree=dataset.sh_degree, device=device)
     if not getattr(args, "disable_viewer", False):
         print("[viewer] the network viewer is not ported to the PyTorch "
@@ -48,6 +50,8 @@ def train_method(method: str, dataset, opt, pipe, args, device) -> None:
         scene, opt, pipe, dataset,
         testing_iterations=set(args.test_iterations),
         saving_iterations=set(args.save_iterations),
+        checkpoint_iterations=set(args.checkpoint_iterations or []),
+        start_checkpoint=getattr(args, "start_checkpoint", None),
         progress=_progress_printer(opt.iterations))
 
     stats = trainer.evaluate(scene.getTestCameras() or
@@ -55,5 +59,6 @@ def train_method(method: str, dataset, opt, pipe, args, device) -> None:
     if stats:
         print(f"\n[ITER {opt.iterations}] Evaluating test: "
               f"L1 {stats['l1']:.4f} PSNR {stats['psnr']:.2f}")
-    print(f"Training took {elapsed:.1f}s "
-          f"({opt.iterations / max(elapsed, 1e-9):.2f} it/s)")
+    ran = opt.iterations - trainer.start_iteration
+    print(f"Training took {elapsed:.1f}s for {ran} iterations "
+          f"({ran / max(elapsed, 1e-9):.2f} it/s)")

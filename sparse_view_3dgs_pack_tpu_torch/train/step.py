@@ -109,7 +109,7 @@ class StepConfig(NamedTuple):
 _DWT_KEYS = ("ll1", "lh1", "hl1", "hh1", "ll2", "lh2", "hl2", "hh2")
 
 
-def sh_band_mask(active_degree: int, max_degree: int, device="cpu"):
+def sh_band_mask(active_degree: int, max_degree: int, device):
     """(K, 1) float mask of the SH coefficients of bands ≤ active_degree."""
     idx = torch.arange((max_degree + 1) ** 2, device=device)
     band = torch.floor(torch.sqrt(idx.to(torch.float32))).to(torch.int64)

@@ -80,8 +80,6 @@ def test_train_cli_refuses_what_is_not_ported(tmp_path):
     for extra, match in ((["--method", "fsgs"], "item 8"),
                          (["--method", "dngaussian"], "item 9"),
                          (["--method", "mult-dwtgs"], "item 10"),
-                         (["--checkpoint_iterations", "1"], "checkpoint"),
-                         (["--start_checkpoint", "x.npz"], "checkpoint"),
                          (["--data_parallel", "2"], "data_parallel"),
                          (["--profile", "trace"], "profile")):
         with pytest.raises(NotImplementedError, match=match):
