@@ -16,7 +16,10 @@ Phases, one line each or more, any failure exits non-zero:
                against their plain versions on the same scenes at 16x16 and
                32x16, per pair and per Gaussian; then one 800x800 training
                render of the 100k-Gaussian training model; two kernel runs
-               on the same inputs bitwise equal
+               on the same inputs bitwise equal, the segment sum in the
+               binning's order bitwise equal to a stable sort's; at 800p
+               K3's (warp, pair) work: replayed, with a contributing lane,
+               culled (none of them contributing)
   5 train      the `bench.py:126-155` configuration (800x800, 100k Gaussians
                from create_from_pcd, SH 3, lgdwt losses, patch 128) through
                `train_step`: 3 warm-up and 20 timed steps on a fixed view
@@ -321,27 +324,44 @@ def phase_kernels(device) -> float:
     return worst
 
 
-def _bwd_case(args, tol: float, label: str):
+def _sort_order(ids, P: int):
+    """(slots, offsets) of a stable sort of the pair ids: the order that
+    `Binning.gaussian_slots` / `gaussian_offsets` give without a sort."""
+    slots = torch.sort(ids, stable=True).indices.to(torch.int32)
+    offsets = torch.zeros(P + 1, dtype=torch.int32, device=ids.device)
+    offsets[1:] = torch.cumsum(torch.bincount(ids, minlength=P), 0)
+    return slots, offsets
+
+
+def _bwd_case(args, ba, tol: float, label: str):
     """K3 and the segment sum against their plain versions on one set of
-    backward inputs (`rasterize_backward` argument tuple): per-pair and
-    per-Gaussian errors relative to the largest plain value, and two kernel
-    runs bitwise equal. Returns (pair error, Gaussian error)."""
+    backward inputs (`rasterize_backward` argument tuple, binning `ba`):
+    per-pair and per-Gaussian errors relative to the largest plain value,
+    two kernel runs bitwise equal, and the segment sum in the binning's
+    order bitwise equal to the same rows summed in a stable sort's order.
+    Returns (pair error, Gaussian error)."""
     from sparse_view_3dgs_pack_tpu_torch.ops import raster
     ids, P = args[5], args[0].shape[0]
+    order = (ba.gaussian_slots, ba.gaussian_offsets)
     out = raster.rasterize_backward(*args)
     again = raster.rasterize_backward(*args)
     ref = raster.rasterize_backward_torch(*args)
-    per = raster.pairs_to_gaussians(out, ids, P)
-    per_again = raster.pairs_to_gaussians(again, ids, P)
+    per = raster.pairs_to_gaussians(out, ids, *order)
+    per_again = raster.pairs_to_gaussians(again, ids, *order)
+    per_sorted = raster.pairs_to_gaussians(out, ids, *_sort_order(ids, P))
     per_ref = raster.pairs_to_gaussians_torch(ref, ids, P)
     torch.cuda.synchronize()
     if not (torch.equal(out, again) and torch.equal(per, per_again)):
         raise AssertionError(f"{label}: two backward runs differ")
+    if not torch.equal(per, per_sorted):
+        raise AssertionError(f"{label}: the segment sum in the binning's "
+                             f"order differs from the stable sort's")
     pair_err = float((out - ref).abs().max() / ref.abs().max())
     g_err = float((per - per_ref).abs().max() / per_ref.abs().max())
     log("bwd", f"{label} pairs={ids.shape[0]} per-pair err {pair_err:.3g}, "
                f"per-Gaussian err {g_err:.3g} (relative to the largest); "
-               f"two runs bitwise equal")
+               f"two runs bitwise equal; segment sum in the binning's order "
+               f"bitwise equal to the stable sort's")
     if not (pair_err <= tol and g_err <= tol):
         raise AssertionError(f"{label}: backward vs plain {pair_err:.3g}, "
                              f"{g_err:.3g} > {tol}")
@@ -373,7 +393,7 @@ def phase_bwd_small(device) -> float:
             ba = bin_gaussians(proj.means2d, proj.depths, proj.radii, W, H,
                                tx, ty)
             args, _ = _bwd_args(proj, ba, bg, W, H, tx, ty)
-            worst = max(worst, *_bwd_case(args, SMALL_TOL,
+            worst = max(worst, *_bwd_case(args, ba, SMALL_TOL,
                                           f"{name} {tx}x{ty}"))
     return worst
 
@@ -406,10 +426,17 @@ def _train_setup(device):
 class Work(NamedTuple):
     """What this run's data asks of the rasterizer kernels, in (pair, pixel)
     evaluations: both replay each pixel's pairs before its stop (n_contrib
-    of them), the forward also evaluates the pair that stops it."""
+    of them), the forward also evaluates the pair that stops it. K3 works
+    per (warp, pair): a warp replays the pairs below its largest n_contrib,
+    reduces a pair's gradients over its lanes where one contributes, and
+    skips a pair whose cull box misses the warp's pixel rectangle."""
     before_stop: int   # sum of n_contrib
     skipped: int       # of those, skipped: power > 0 or alpha < 1/255
     stops: int         # pixels that stop before their tile's last pair
+    warp_pairs: int    # (warp, pair) below the warp's largest n_contrib
+    warp_contrib: int  # of those, with a contributing lane
+    warp_culled: int   # of those, outside the warp's cull box
+    culled_contrib: int  # culled yet with a contributing lane: must be 0
 
     def fwd_ops(self, C: int) -> int:
         return ((self.before_stop - self.skipped) * fwd_ops_per_contrib(C)
@@ -422,14 +449,19 @@ class Work(NamedTuple):
 
 def _work(proj, ba, n_contrib, W, H, tx, ty) -> Work:
     """Counts each pixel's evaluations before its stop and, with the
-    kernels' own expression and test, the skipped ones among them (tiles
-    in batches, pairs in chunks, on the card)."""
+    kernels' own expression and test, the skipped ones among them; per
+    (warp, pair), the replayed, contributing and culled ones (the cull box
+    of `raster.cull_box_torch`). Tiles in batches, pairs in chunks, on the
+    card."""
+    from sparse_view_3dgs_pack_tpu_torch.ops import raster
     from sparse_view_3dgs_pack_tpu_torch.ops.binning import tile_grid
     from sparse_view_3dgs_pack_tpu_torch.ops.blending import (ALPHA_EPS,
                                                               ALPHA_MAX)
     dev = n_contrib.device
     gx, gy = tile_grid(W, H, tx, ty)
     pix = tx * ty
+    warp_pix = raster.warp_pixels(tx, ty).to(dev)      # (nw, pixels)
+    nw = warp_pix.shape[0]
     nc = n_contrib.to(torch.int64)
     counts = ba.tile_counts.to(torch.int64)
     ys = torch.arange(H, device=dev) // ty
@@ -438,6 +470,9 @@ def _work(proj, ba, n_contrib, W, H, tx, ty) -> Work:
     stops = int((nc < per_pix).sum())
     nc_t = torch.nn.functional.pad(nc, (0, gx * tx - W, 0, gy * ty - H))
     nc_t = nc_t.reshape(gy, ty, gx, tx).permute(0, 2, 1, 3).reshape(-1, pix)
+    warp_max = nc_t[:, warp_pix].max(2).values               # (tiles, nw)
+    boxes = raster.cull_box_torch(proj.means2d, proj.conics, proj.opacities)
+    rects = raster.warp_rects(tx, ty).to(dev)
     lin = torch.arange(pix, device=dev)
     lx, ly = (lin % tx).to(torch.float32), (lin // tx).to(torch.float32)
     deepest = nc_t.max(1).values
@@ -445,7 +480,7 @@ def _work(proj, ba, n_contrib, W, H, tx, ty) -> Work:
     depth_sorted = deepest[order].tolist()
     chunk = 256
     tb = max(1, (1 << 24) // (pix * chunk))
-    skipped = 0
+    skipped = warp_contrib = warp_culled = culled_contrib = 0
     for b0 in range(0, order.shape[0], tb):
         kmax = depth_sorted[b0]
         if kmax == 0:
@@ -453,6 +488,10 @@ def _work(proj, ba, n_contrib, W, H, tx, ty) -> Work:
         tsel = order[b0:b0 + tb]
         px = ((tsel % gx) * tx).to(torch.float32)[:, None] + lx
         py = ((tsel // gx) * ty).to(torch.float32)[:, None] + ly
+        origin = torch.stack([tsel % gx * tx, tsel % gx * tx,
+                              tsel // gx * ty, tsel // gx * ty], 1)
+        rect_b = (origin[:, None, None, :] + rects[None, :, None, :])
+        wmax_b = warp_max[tsel]
         nc_b, st = nc_t[tsel], ba.tile_starts.to(torch.int64)[tsel]
         for k0 in range(0, kmax, chunk):
             k = torch.arange(k0, min(k0 + chunk, kmax), device=dev)
@@ -468,9 +507,16 @@ def _work(proj, ba, n_contrib, W, H, tx, ty) -> Work:
             alpha = torch.clamp(proj.opacities[g][:, None, :] * torch.exp(
                 torch.clamp(power, max=0.0)), max=ALPHA_MAX)
             before = k[None, None, :] < nc_b[:, :, None]
-            skipped += int((before & ((power > 0.0) | (alpha < ALPHA_EPS)))
-                           .sum())
-    return Work(int(nc.sum()), skipped, stops)
+            skip = (power > 0.0) | (alpha < ALPHA_EPS)
+            skipped += int((before & skip).sum())
+            contrib = (before & ~skip)[:, warp_pix].any(2)     # (B, nw, K)
+            below = k[None, None, :] < wmax_b[:, :, None]      # (B, nw, K)
+            outside = raster.rect_outside(boxes[g][:, None], rect_b)
+            warp_contrib += int(contrib.sum())
+            warp_culled += int((below & outside).sum())
+            culled_contrib += int((contrib & outside).sum())
+    return Work(int(nc.sum()), skipped, stops, int(warp_max.sum()),
+                warp_contrib, warp_culled, culled_contrib)
 
 
 def _stop_f64(proj, ba, pixels, W, tx, ty) -> list:
@@ -553,7 +599,8 @@ def phase_bwd_full(model, cams, device) -> dict:
                    f"float64 replay stops with the kernel at "
                    f"{int((fwd.n_contrib[at] == n64).sum())}, with the plain "
                    f"version at {int((ref.n_contrib[at] == n64).sum())}")
-    pair_err, g_err = _bwd_case(args, FULL_TOL, f"{W}x{H} training render")
+    pair_err, g_err = _bwd_case(args, ba, FULL_TOL,
+                                f"{W}x{H} training render")
 
     P, C, n_pairs = proj.means2d.shape[0], 3, ba.total_pairs
     num_tiles = ba.tile_counts.shape[0]
@@ -564,12 +611,15 @@ def phase_bwd_full(model, cams, device) -> dict:
     t_fwd_plain = cuda_ms(lambda: raster.rasterize_forward_torch(*fargs), 2)
     t_bwd = cuda_ms(lambda: raster.rasterize_backward(*args), 20)
     t_bwd_plain = cuda_ms(lambda: raster.rasterize_backward_torch(*args), 2)
-    t_seg = cuda_ms(lambda: raster.pairs_to_gaussians(pairs, ids, P), 20)
+    order = (ba.gaussian_slots, ba.gaussian_offsets)
+    t_seg = cuda_ms(lambda: raster.pairs_to_gaussians(pairs, ids, *order),
+                    20)
     t_seg_plain = cuda_ms(lambda: raster.pairs_to_gaussians_torch(
         pairs, ids, P), 5)
     ids64 = ids.to(torch.int64)
     t_seg_lib = cuda_ms(lambda: torch.zeros((P, K), device=device)
                         .index_add_(0, ids64, pairs), 20)
+    t_sort = cuda_ms(lambda: _sort_order(ids, P), 20)
     work = _work(proj, ba, fwd.n_contrib, W, H, tx, ty)
     fb = _fwd_bound(P, C, n_pairs, num_tiles, W, H, work, True)
     bb = _bwd_bound(P, C, n_pairs, num_tiles, W, H, work)
@@ -578,12 +628,27 @@ def phase_bwd_full(model, cams, device) -> dict:
                f"before the stops, {work.skipped} of them skipped "
                f"({100 * work.skipped / work.before_stop:.1f}%), "
                f"{work.stops} pixels stop early")
+    log("bwd", f"{W}x{H} K3 per (warp, pair): {work.warp_pairs} replayed "
+               f"(below the warp's largest n_contrib), {work.warp_contrib} "
+               f"with a contributing lane "
+               f"({100 * work.warp_contrib / work.warp_pairs:.1f}%), "
+               f"{work.warp_culled} outside the warp's cull box "
+               f"({100 * work.warp_culled / work.warp_pairs:.1f}%), "
+               f"{work.culled_contrib} culled with a contributing lane")
+    if work.culled_contrib:
+        raise AssertionError(f"the cull box drops {work.culled_contrib} "
+                             f"(warp, pair) with a contributing lane")
     log("bwd", f"{W}x{H} training shape: raster_fwd {t_fwd:.3f} ms (plain "
                f"{t_fwd_plain:.1f}, bound {fb[0]:.4f} by {fb[1]}); "
-               f"raster_bwd {t_bwd:.3f} ms (plain {t_bwd_plain:.1f}, bound "
-               f"{bb[0]:.4f} by {bb[1]}); segment_sum {t_seg:.3f} ms (plain "
+               f"raster_bwd {t_bwd:.3f} ms through its wrapper, the pair "
+               f"buffer allocated empty (no zero fill of "
+               f"{n_pairs * K * 4 / 1e6:.1f} MB) (plain "
+               f"{t_bwd_plain:.1f}, bound {bb[0]:.4f} by {bb[1]}); "
+               f"segment_sum {t_seg:.3f} ms in the binning's order (plain "
                f"{t_seg_plain:.3f}, index_add_ {t_seg_lib:.3f}, bound "
-               f"{sb[0]:.4f} by {sb[1]})")
+               f"{sb[0]:.4f} by {sb[1]}; a stable sort of the ids with "
+               f"its bincount and cumsum, which that order saves, takes "
+               f"{t_sort:.3f})")
     return {
         "raster_fwd": dict(max_abs_err=max(errs["color"], errs["alpha"],
                                            errs["invdepth"]),

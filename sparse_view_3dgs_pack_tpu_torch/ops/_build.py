@@ -3,8 +3,9 @@
 Each `csrc/*.cu` file is compiled at first use by `nvcc` for Hopper
 (`sm_90a`) into a shared library with a plain C interface, under
 `build/kernels/` at the root of the checkout, and loaded with ctypes. The
-library name carries a hash of the source and flags, so an edited source is
-rebuilt and a stale library is never loaded. Nothing is built at import.
+library name carries a hash of the source, of the `csrc/` headers it
+includes and of the flags, so an edited source or header is rebuilt and a
+stale library is never loaded. Nothing is built at import.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -45,8 +47,23 @@ def _flags(name: str) -> tuple:
     return NVCC_FLAGS + SOURCE_FLAGS.get(name, ())
 
 
+def _headers(name: str) -> list[Path]:
+    """The `csrc/` headers that `<name>.cu` includes (`#include "..."`),
+    and theirs in turn."""
+    found, todo = [], [CSRC_DIR / f"{name}.cu"]
+    while todo:
+        text = todo.pop().read_text()
+        for inc in re.findall(r'^\s*#\s*include\s+"([^"]+)"', text, re.M):
+            path = CSRC_DIR / inc
+            if path not in found:
+                found.append(path)
+                todo.append(path)
+    return sorted(found)
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    src = b"".join(p.read_bytes()
+                   for p in [CSRC_DIR / f"{name}.cu", *_headers(name)])
     digest = hashlib.sha256(src + " ".join(_flags(name)).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 

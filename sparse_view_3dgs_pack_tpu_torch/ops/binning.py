@@ -28,6 +28,32 @@ class Binning(NamedTuple):
     tile_starts: torch.Tensor  # (num_tiles,) int32
     tile_counts: torch.Tensor  # (num_tiles,) int32
     total_pairs: int           # exact pair count (host int)
+    # the sort's permutation (slot -> expanded pair) and where each
+    # Gaussian's expanded pairs start: what the backward's per-Gaussian
+    # order is made of (`gaussian_slots`, `gaussian_offsets`)
+    order: torch.Tensor        # (total_pairs,) int64
+    pair_starts: torch.Tensor  # (P,) int64, exclusive cumsum of pair counts
+
+    @property
+    def gaussian_slots(self) -> torch.Tensor:
+        """(total_pairs,) int32: each Gaussian's pair slots in ascending slot
+        order, Gaussian by Gaussian (= torch.sort(ids, stable=True).indices),
+        the fixed order of the backward's per-Gaussian sum. Pairs were
+        expanded Gaussian by Gaussian, each over its tiles in ascending tile
+        id, and slots are tile-major: so this is the inverse of `order`, one
+        scatter. Computed where it is read, by the training render only."""
+        n = self.total_pairs
+        slots = torch.empty(n, dtype=torch.int32, device=self.order.device)
+        slots[self.order] = torch.arange(n, dtype=torch.int32,
+                                         device=self.order.device)
+        return slots
+
+    @property
+    def gaussian_offsets(self) -> torch.Tensor:
+        """(P + 1,) int32: where each Gaussian's run starts in
+        `gaussian_slots`, with total_pairs appended."""
+        return torch.nn.functional.pad(self.pair_starts, (0, 1),
+                                       value=self.total_pairs).to(torch.int32)
 
 
 def tile_grid(width: int, height: int, tile: int = TILE,
@@ -113,7 +139,10 @@ def bin_gaussians(means2d, depths, radii, width: int, height: int,
         zeros = torch.zeros(num_tiles, dtype=torch.int32, device=dev)
         return Binning(ids=torch.zeros(0, dtype=torch.int32, device=dev),
                        tile_starts=zeros, tile_counts=zeros.clone(),
-                       total_pairs=0)
+                       total_pairs=0,
+                       order=torch.zeros(0, dtype=torch.int64, device=dev),
+                       pair_starts=torch.zeros(P, dtype=torch.int64,
+                                               device=dev))
 
     gid = torch.repeat_interleave(torch.arange(P, device=dev), touched,
                                   output_size=total)
@@ -131,7 +160,7 @@ def bin_gaussians(means2d, depths, radii, width: int, height: int,
     return Binning(ids=gid[order].to(torch.int32),
                    tile_starts=starts.to(torch.int32),
                    tile_counts=counts.to(torch.int32),
-                   total_pairs=total)
+                   total_pairs=total, order=order, pair_starts=offsets)
 
 
 def count_pairs(means2d, depths, radii, width, height, tile: int = TILE,

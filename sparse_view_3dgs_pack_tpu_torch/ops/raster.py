@@ -14,7 +14,8 @@ Each wrapper's `launches` counts its kernel launches.
 Inputs are per-Gaussian arrays plus the binning of `ops/binning.py`:
   means2d (P, 2), depths (P,), conics (P, 3), colors (P, C), opacities (P,)
   float32; ids (n_pairs,), tile_starts/tile_counts (num_tiles,) int32;
-  bg (C,) float32.
+  bg (C,) float32; for the per-Gaussian sum of the backward, the
+  binning's gaussian_slots (n_pairs,) and gaussian_offsets (P + 1,) int32.
 Forward outputs are images: color (H, W, C), invdepth, depth, alpha (H, W)
 and, for the training instantiation, n_contrib (H, W) int32 — every pair
 before the sticky stop, skipped pairs included — and log_t (H, W), the
@@ -33,7 +34,16 @@ from .binning import tile_grid
 from .blending import ALPHA_EPS, ALPHA_MAX, LOG_T_EPS, alpha_from_power
 
 MAX_PAYLOAD = 8          # C colours + inverse depth + depth
-MAX_TILE_PIXELS = 512    # one thread per pixel (kMaxTilePixels in the .cu)
+MAX_TILE_PIXELS = 512    # pixels per tile (kMaxTilePixels in the .cu)
+BWD_PIXELS = 2           # pixels per thread of the backward kernel (kPix)
+# the cull box of `cull_box_torch` and `csrc/raster_common.cuh::cull_box`:
+# slack on the threshold per unit of a·c/det (f32 rounding of the quadratic
+# form, 4x its bound), the most slack it takes before it gives up, the
+# margin in pixels, and the pixel coordinates it holds for, [0, CULL_SPAN)
+CULL_SLACK = 64 * 2.0 ** -23
+CULL_MAX_SLACK = 0.25
+CULL_MARGIN = 1.0
+CULL_SPAN = 65536.0
 # plain version: pairs per step of the blend, and the element budget of one
 # (tiles, pixels, pairs) array — bounds its memory whatever a tile's depth
 PLAIN_CHUNK = 256
@@ -287,6 +297,71 @@ def _tile(img, width, height, tile_x, tile_y):
                                               tile_x * tile_y, k)
 
 
+def cull_box_torch(means2d, conics, opacities) -> torch.Tensor:
+    """(P, 4) float32 [x_lo, x_hi, y_lo, y_hi] per Gaussian: no pixel (x, y)
+    with coordinates in [0, CULL_SPAN) outside the box passes the α ≥ 1/255
+    test of `alpha_from_power` in f32. Plain version of the backward
+    kernel's per-warp cull (`csrc/raster_common.cuh::cull_box`, the same
+    arithmetic in the same order); used by the tests and `chip_smoke.py`.
+
+    op·exp(power) ≥ 1/255 ⇔ ½dᵀQd ≤ t = ln(255·op), so |dx| ≤ √(2t·c/det)
+    and |dy| ≤ √(2t·a/det) with Q = [[a, b], [b, c]], det = ac − b². t is
+    raised by 1e-5 and by the factor 1 + 2·slack, slack = CULL_SLACK·ac/det,
+    which covers the f32 rounding of the quadratic form (its terms reach
+    4·ac/det times its value as det → 0) and of det; then one pixel of
+    margin. The box is everything, (−inf, inf, −inf, inf), where it cannot
+    say: an input NaN or inf, a ≤ 0, det ≤ 0, slack > CULL_MAX_SLACK, or a
+    conic large enough to overflow the quadratic form. It is empty, (inf,
+    −inf, inf, −inf), where op < 1/255 (finite inputs): no pixel passes."""
+    mx, my = means2d[:, 0], means2d[:, 1]
+    a, b, c = conics[:, 0], conics[:, 1], conics[:, 2]
+    op = opacities
+    det = a * c - b * b
+    slack = CULL_SLACK * (a * c / det)
+    t = (torch.log(255.0 * op) + 1e-5) * (1.0 + 2.0 * slack)
+    rx = torch.sqrt(2.0 * t * c / det) + CULL_MARGIN
+    ry = torch.sqrt(2.0 * t * a / det) + CULL_MARGIN
+    box = torch.stack([mx - rx, mx + rx, my - ry, my + ry], 1)
+    finite = (torch.isfinite(means2d).all(1) & torch.isfinite(conics).all(1)
+              & torch.isfinite(op))
+    span = mx.abs() + my.abs() + CULL_SPAN
+    big = torch.maximum(torch.maximum(a, b.abs()), c) * span * span
+    sure = (finite & (a > 0) & (det > 0) & (slack <= CULL_MAX_SLACK)
+            & (big <= 1e37))
+    inf = float("inf")
+    every = torch.tensor([-inf, inf, -inf, inf], device=op.device)
+    empty = torch.tensor([inf, -inf, inf, -inf], device=op.device)
+    box = torch.where(sure[:, None], box, every)
+    return torch.where((finite & (op < ALPHA_EPS))[:, None], empty, box)
+
+
+def warp_pixels(tile_x: int, tile_y: int) -> torch.Tensor:
+    """(warps, 32 · BWD_PIXELS) int64: the pixels (row-major index in the
+    tile) that each warp of the backward kernel replays. Thread t covers
+    column t % tile_x of the BWD_PIXELS rows BWD_PIXELS · (t // tile_x) + i;
+    warp w holds threads 32w … 32w + 31."""
+    t = torch.arange(tile_x * tile_y // BWD_PIXELS)
+    rows = BWD_PIXELS * (t // tile_x)[:, None] + torch.arange(BWD_PIXELS)
+    return (rows * tile_x + (t % tile_x)[:, None]).reshape(
+        -1, 32 * BWD_PIXELS)
+
+
+def warp_rects(tile_x: int, tile_y: int) -> torch.Tensor:
+    """(warps, 4) int64 [x0, x1, y0, y1]: the pixel rectangle (inclusive,
+    relative to the tile's origin) that holds each warp's pixels
+    (`warp_pixels`; `csrc/raster_common.cuh::warp_rect`)."""
+    pix = warp_pixels(tile_x, tile_y)
+    x, y = pix % tile_x, pix // tile_x
+    return torch.stack([x.amin(1), x.amax(1), y.amin(1), y.amax(1)], 1)
+
+
+def rect_outside(box: torch.Tensor, rect: torch.Tensor) -> torch.Tensor:
+    """Whether each pixel rectangle [x0, x1, y0, y1] lies outside the
+    matching cull box (broadcast over leading dimensions)."""
+    return ((rect[..., 1] < box[..., 0]) | (rect[..., 0] > box[..., 1])
+            | (rect[..., 3] < box[..., 2]) | (rect[..., 2] > box[..., 3]))
+
+
 def _check_backward(ids, log_t, n_contrib, g_color, g_invdepth, g_depth,
                     g_alpha, width, height, C):
     img = {"log_t": (log_t, torch.float32, (height, width)),
@@ -334,12 +409,14 @@ def _rasterize_backward_cuda(means2d, depths, conics, colors, opacities, ids,
     _check_backward(ids, log_t, n_contrib, g_color, g_invdepth, g_depth,
                     g_alpha, width, height, C)
     _check_tile(tile_x, tile_y)
+    if tile_y % BWD_PIXELS or (tile_x * tile_y // BWD_PIXELS) % 32:
+        raise ValueError(f"tile {tile_x}x{tile_y}: the backward kernel takes "
+                         f"{BWD_PIXELS} rows per thread and whole warps")
     ins = (means2d, conics, opacities, colors, depths, ids, starts, counts,
            bg, log_t, n_contrib, g_color, g_invdepth, g_depth, g_alpha)
     _check_contiguous("rasterize_backward", ins)
     dev = means2d.device
-    # pairs past every pixel's n_contrib are not written by the kernel
-    out = torch.zeros((ids.shape[0], C + 8), dtype=torch.float32, device=dev)
+    out = torch.empty((ids.shape[0], C + 8), dtype=torch.float32, device=dev)
     fn = _bind(load("raster_bwd"), "raster_bwd", 16, 7)
     with torch.cuda.device(dev):
         err = fn(*(t.data_ptr() for t in ins), out.data_ptr(),
@@ -459,34 +536,40 @@ def rasterize_backward_torch(means2d, depths, conics, colors, opacities, ids,
 
 
 def pairs_to_gaussians(pair_grads: torch.Tensor, ids: torch.Tensor,
-                       num_gaussians: int) -> torch.Tensor:
-    """Per-Gaussian sums (P, K) of the per-pair rows (n_pairs, K), in a
-    fixed order: on CUDA tensors, pair slots stably sorted by Gaussian id,
-    then one thread per (Gaussian, column) of `csrc/raster_bwd.cu` adding
-    its slots in slot order (no atomics, so the bits do not change from run
-    to run); on CPU tensors `pairs_to_gaussians_torch`.
-    `pairs_to_gaussians.launches` counts kernel launches."""
-    dev = _device_of((pair_grads, ids))
+                       gaussian_slots: torch.Tensor,
+                       gaussian_offsets: torch.Tensor) -> torch.Tensor:
+    """Per-Gaussian sums (P, K) of the per-pair rows (n_pairs, K), P =
+    len(gaussian_offsets) - 1, in a fixed order: on CUDA tensors one warp
+    per Gaussian of `csrc/raster_bwd.cu` adds the Gaussian's slots in the
+    order the binning lists them (`Binning.gaussian_slots`, ascending slot
+    order; no sort here and no atomics, so the bits do not change from run
+    to run); on CPU tensors `pairs_to_gaussians_torch`, which reads only
+    `ids`. `pairs_to_gaussians.launches` counts kernel launches."""
+    dev = _device_of((pair_grads, ids, gaussian_slots, gaussian_offsets))
+    n = ids.shape[0]
     if pair_grads.dtype != torch.float32 or pair_grads.ndim != 2 \
-            or pair_grads.shape[0] != ids.shape[0]:
-        raise ValueError(f"pair_grads: expected float32 ({ids.shape[0]}, K),"
-                         f" got {pair_grads.dtype} {tuple(pair_grads.shape)}")
-    if ids.dtype != torch.int32 or ids.ndim != 1:
-        raise ValueError(f"ids: expected int32 (n_pairs,), got {ids.dtype} "
-                         f"{tuple(ids.shape)}")
+            or pair_grads.shape[0] != n:
+        raise ValueError(f"pair_grads: expected float32 ({n}, K), got "
+                         f"{pair_grads.dtype} {tuple(pair_grads.shape)}")
+    num_gaussians = max(gaussian_offsets.shape[0] - 1, 0)
+    for name, t, shape in (("ids", ids, (n,)),
+                           ("gaussian_slots", gaussian_slots, (n,)),
+                           ("gaussian_offsets", gaussian_offsets,
+                            (num_gaussians + 1,))):
+        if t.dtype != torch.int32 or tuple(t.shape) != shape:
+            raise ValueError(f"{name}: expected int32 {shape}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
     if dev.type == "cpu":
         return pairs_to_gaussians_torch(pair_grads, ids, num_gaussians)
-    _check_contiguous("pairs_to_gaussians", (pair_grads, ids))
+    _check_contiguous("pairs_to_gaussians",
+                      (pair_grads, gaussian_slots, gaussian_offsets))
     k = pair_grads.shape[1]
-    order = torch.sort(ids, stable=True).indices.to(torch.int32)
-    per = torch.bincount(ids, minlength=num_gaussians)
-    offsets = torch.zeros(num_gaussians + 1, dtype=torch.int32, device=dev)
-    offsets[1:] = torch.cumsum(per, 0)
     out = torch.empty((num_gaussians, k), dtype=torch.float32, device=dev)
     fn = _bind(load("raster_bwd"), "segment_sum", 3, 2, trailing_ptrs=2)
     with torch.cuda.device(dev):
-        err = fn(pair_grads.data_ptr(), order.data_ptr(), offsets.data_ptr(),
-                 num_gaussians, k, out.data_ptr(), _stream(dev))
+        err = fn(pair_grads.data_ptr(), gaussian_slots.data_ptr(),
+                 gaussian_offsets.data_ptr(), num_gaussians, k,
+                 out.data_ptr(), _stream(dev))
     if err != 0:
         raise RuntimeError(f"segment_sum launch failed: cudaError {err}")
     pairs_to_gaussians.launches += 1
@@ -511,31 +594,34 @@ class RasterizeFunction(torch.autograd.Function):
     pair kernel and the fixed-order reduction to Gaussians, then
       d_depths = -d_invd/depth² + d_depth on finite depths, 0 elsewhere,
       d_bg     = Σ_pixels T_final · d_color.
-    ids/starts/counts are integer binning outputs and get no gradient."""
+    ids/starts/counts and the binning's gaussian_slots/gaussian_offsets
+    (the order of the per-Gaussian sum) are integer binning outputs and get
+    no gradient."""
 
     @staticmethod
     def forward(ctx, means2d, depths, conics, colors, opacities, ids, starts,
-                counts, bg, width, height, tile_x, tile_y):
+                counts, bg, gaussian_slots, gaussian_offsets, width, height,
+                tile_x, tile_y):
         out = rasterize_forward(means2d, depths, conics, colors, opacities,
                                 ids, starts, counts, bg, width, height,
                                 tile_x, tile_y, compute_n_contrib=True)
         ctx.save_for_backward(means2d, depths, conics, colors, opacities,
-                              ids, starts, counts, bg, out.log_t,
-                              out.n_contrib)
+                              ids, starts, counts, bg, gaussian_slots,
+                              gaussian_offsets, out.log_t, out.n_contrib)
         ctx.dims = (width, height, tile_x, tile_y)
         return out.color, out.invdepth, out.depth, out.alpha
 
     @staticmethod
     def backward(ctx, d_color, d_invd, d_depth, d_alpha):
         (means2d, depths, conics, colors, opacities, ids, starts, counts, bg,
-         log_t, n_contrib) = ctx.saved_tensors
+         slots, offsets, log_t, n_contrib) = ctx.saved_tensors
         C = colors.shape[-1]
         cot = [t.contiguous().to(torch.float32)
                for t in (d_color, d_invd, d_depth, d_alpha)]
         pairs = rasterize_backward(means2d, depths, conics, colors, opacities,
                                    ids, starts, counts, bg, log_t, n_contrib,
                                    *cot, *ctx.dims)
-        per = pairs_to_gaussians(pairs, ids, means2d.shape[0])
+        per = pairs_to_gaussians(pairs, ids, slots, offsets)
         finite = torch.isfinite(depths)
         safe = torch.where(finite, depths, torch.ones_like(depths))
         d_depths = torch.where(
@@ -543,27 +629,37 @@ class RasterizeFunction(torch.autograd.Function):
             torch.zeros_like(depths))
         d_bg = (torch.exp(log_t)[..., None] * cot[0]).sum((0, 1))
         return (per[:, 0:2], d_depths, per[:, 2:5], per[:, 6:6 + C],
-                per[:, 5], None, None, None, d_bg, None, None, None, None)
+                per[:, 5], None, None, None, d_bg, None, None, None, None,
+                None, None)
 
 
 def make_rasterizer(width: int, height: int, channels: int,
                     inference: bool = True, tile_x: int = 32,
                     tile_y: int = 16):
     """Rasterizer closure for one image size, with the signature and output
-    of the JAX `make_pallas_rasterizer` closures:
-    f(means2d, depths, conics, colors, opacities, ids, starts, counts, bg)
+    of the JAX `make_pallas_rasterizer` closures, plus what the backward's
+    per-Gaussian sum reads of the binning:
+    f(means2d, depths, conics, colors, opacities, ids, starts, counts, bg,
+      gaussian_slots=None, gaussian_offsets=None)
       → (color, invdepth, depth, alpha).
-    inference=False returns the differentiable one (`RasterizeFunction`)."""
+    inference=False returns the differentiable one (`RasterizeFunction`),
+    which needs `Binning.gaussian_slots` and `Binning.gaussian_offsets`;
+    the inference one does not read them."""
 
     def rasterize(means2d, depths, conics, colors, opacities, ids, starts,
-                  counts, bg):
+                  counts, bg, gaussian_slots=None, gaussian_offsets=None):
         if colors.shape[-1] != channels:
             raise ValueError(f"expected {channels} channels, got "
                              f"{colors.shape[-1]}")
         if not inference:
+            if gaussian_slots is None or gaussian_offsets is None:
+                raise ValueError("the differentiable rasterizer needs the "
+                                 "binning's gaussian_slots and "
+                                 "gaussian_offsets")
             return RasterizeFunction.apply(
                 means2d, depths, conics, colors, opacities, ids, starts,
-                counts, bg, width, height, tile_x, tile_y)
+                counts, bg, gaussian_slots, gaussian_offsets, width, height,
+                tile_x, tile_y)
         out = rasterize_forward(means2d, depths, conics, colors, opacities,
                                 ids, starts, counts, bg, width, height,
                                 tile_x, tile_y, compute_n_contrib=False)

@@ -102,6 +102,9 @@ def render_core(params: dict, exposure_mat: torch.Tensor, cam,
     with record_function("render/binning"):
         ba = bin_gaussians(means2d.detach(), proj.depths.detach(),
                            proj.rect_radii, width, height, tx, ty)
+        # the backward's per-Gaussian order; a render never reads it
+        order = (() if inference
+                 else (ba.gaussian_slots, ba.gaussian_offsets))
     raster = make_rasterizer(width, height, proj.colors.shape[-1],
                              inference=inference, tile_x=tx, tile_y=ty)
     with record_function("render/rasterize"):
@@ -109,7 +112,7 @@ def render_core(params: dict, exposure_mat: torch.Tensor, cam,
             means2d.contiguous(), proj.depths.contiguous(),
             proj.conics.contiguous(), proj.colors.contiguous(),
             proj.opacities.contiguous(), ba.ids, ba.tile_starts,
-            ba.tile_counts, bg_color)
+            ba.tile_counts, bg_color, *order)
 
     image = color
     if use_trained_exp:

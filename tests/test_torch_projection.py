@@ -91,3 +91,51 @@ def test_sh_eval_matches_jax():
             eval_sh(deg, torch.as_tensor(sh), torch.as_tensor(d)).numpy(),
             np.asarray(jax_eval_sh(deg, jnp.asarray(sh), jnp.asarray(d))),
             rtol=1e-6, atol=1e-6)
+
+
+def _assert_gaussian_order(out, P):
+    """The binning's per-Gaussian slot order is the stable sort of the ids,
+    and its offsets the exclusive cumsum of the per-Gaussian pair counts."""
+    ids = out.ids.long()
+    assert out.gaussian_slots.dtype == out.gaussian_offsets.dtype \
+        == torch.int32
+    assert torch.equal(out.gaussian_slots.long(),
+                       torch.sort(ids, stable=True).indices)
+    per = torch.bincount(ids, minlength=P)
+    want = torch.cat([torch.zeros(1, dtype=torch.int64), torch.cumsum(per, 0)])
+    assert torch.equal(out.gaussian_offsets.long(), want)
+
+
+@pytest.mark.parametrize("scene", testing.RASTER_SCENES)
+@pytest.mark.parametrize("tile_x,tile_y", [(16, 16), (32, 16)])
+def test_binning_gaussian_slots_are_the_stable_sort(scene, tile_x, tile_y):
+    cloud, cam = testing.raster_scene(scene)
+    _, tp = project_both(cloud, cam)
+    out = binning.bin_gaussians(tp.means2d, tp.depths, tp.rect_radii,
+                                cam.width, cam.height, tile_x, tile_y)
+    assert out.total_pairs > 0
+    # Gaussians with several pairs, so the order within a run matters
+    assert int(torch.bincount(out.ids.long()).max()) > 1
+    _assert_gaussian_order(out, tp.means2d.shape[0])
+
+
+def test_binning_gaussian_slots_empty_and_untouched():
+    """A frame with no pairs, and one where some Gaussians (zero radius, or
+    off the image) touch no tile: their runs are empty."""
+    empty = binning.bin_gaussians(torch.zeros((3, 2)), torch.ones(3),
+                                  torch.zeros((3, 2), dtype=torch.int32),
+                                  64, 48, 32, 16)
+    assert empty.gaussian_slots.numel() == 0
+    assert torch.equal(empty.gaussian_offsets,
+                       torch.zeros(4, dtype=torch.int32))
+    means = torch.tensor([[10.0, 10.0], [30.0, 20.0], [500.0, 20.0],
+                          [40.0, 30.0], [20.0, 40.0]])
+    radii = torch.tensor([[9, 4], [0, 0], [5, 5], [20, 12], [3, 3]],
+                         dtype=torch.int32)
+    out = binning.bin_gaussians(means, torch.tensor([3.0, 1.0, 2.0, 1.5,
+                                                     0.5]),
+                                radii, 64, 48, 16, 16)
+    _assert_gaussian_order(out, 5)
+    per = out.gaussian_offsets[1:] - out.gaussian_offsets[:-1]
+    assert per[1] == 0 and per[2] == 0 and int(per.min()) == 0
+    assert int(per[3]) > 1

@@ -145,7 +145,8 @@ def test_wrapper_cpu_runs_plain_version():
                                                          7)),
                                  *args[4:8], torch.zeros(7), W, H, 32, 16)
     # the differentiable closure: same images, still no launch on the CPU
-    train = raster.make_rasterizer(W, H, 3, inference=False)(*args)
+    train = raster.make_rasterizer(W, H, 3, inference=False)(
+        *args, ba.gaussian_slots, ba.gaussian_offsets)
     for a, b in zip(train, ref):
         assert torch.equal(a, b)
     assert raster.rasterize_forward.launches == before
@@ -176,3 +177,25 @@ def test_cuda_kernel_matches_plain(tile_x, tile_y, n_contrib):
         ref.depth.abs().max()), rtol=0)
     if n_contrib:
         assert torch.equal(out.n_contrib, ref.n_contrib)
+
+
+def test_library_hash_covers_the_headers_a_source_includes(tmp_path,
+                                                           monkeypatch):
+    """A kernel library's name changes with an edit to a `csrc/` header its
+    source includes (so a stale library is never loaded), and not with an
+    edit to a header it does not include."""
+    from sparse_view_3dgs_pack_tpu_torch.ops import _build
+    for p in _build.CSRC_DIR.iterdir():
+        (tmp_path / p.name).write_bytes(p.read_bytes())
+    monkeypatch.setattr(_build, "CSRC_DIR", tmp_path)
+    assert [p.name for p in _build._headers("raster_bwd")] == \
+        ["raster_common.cuh"]
+    assert _build._headers("raster_fwd") == []
+    names = ("raster_fwd", "raster_bwd", "probes")
+    before = {n: _build.library_path(n) for n in names}
+    with open(tmp_path / "raster_common.cuh", "a") as f:
+        f.write("\n// edited\n")
+    after = {n: _build.library_path(n) for n in names}
+    assert after["raster_bwd"] != before["raster_bwd"]
+    assert after["raster_fwd"] == before["raster_fwd"]
+    assert after["probes"] == before["probes"]

@@ -21,7 +21,9 @@ from sparse_view_3dgs_pack_tpu.ops.rasterize_ref import \
     rasterize_dense as jax_rasterize_dense
 from sparse_view_3dgs_pack_tpu_torch import testing
 from sparse_view_3dgs_pack_tpu_torch.ops import raster
-from sparse_view_3dgs_pack_tpu_torch.ops.binning import bin_gaussians
+from sparse_view_3dgs_pack_tpu_torch.ops.binning import (bin_gaussians,
+                                                          tile_grid)
+from sparse_view_3dgs_pack_tpu_torch.ops.blending import alpha_from_power
 from torch_port import project_both, to_torch
 
 W, H = testing.RASTER_W, testing.RASTER_H
@@ -55,7 +57,8 @@ def _port_grads(tp, tile_x, tile_y, gw):
     bg = torch.tensor(BG, requires_grad=True)
     fn = raster.make_rasterizer(W, H, 3, inference=False, tile_x=tile_x,
                                 tile_y=tile_y)
-    outs = fn(*ins, ba.ids, ba.tile_starts, ba.tile_counts, bg)
+    outs = fn(*ins, ba.ids, ba.tile_starts, ba.tile_counts, bg,
+              ba.gaussian_slots, ba.gaussian_offsets)
     sum(torch.sum(o * torch.as_tensor(g)) for o, g in zip(outs, gw)
         ).backward()
     return [t.grad.numpy() for t in ins] + [bg.grad.numpy()], ba
@@ -184,7 +187,8 @@ def test_gradient_semantics_depths_and_culled():
         ba.tile_starts, ba.tile_counts, torch.as_tensor(BG), fwd.log_t,
         fwd.n_contrib, *[torch.as_tensor(g) for g in gw], W, H, 16, 16)
     assert pairs.shape == (ba.total_pairs, 11)
-    per = raster.pairs_to_gaussians(pairs, ba.ids, tp.means2d.shape[0])
+    per = raster.pairs_to_gaussians(pairs, ba.ids, ba.gaussian_slots,
+                                    ba.gaussian_offsets)
     np.testing.assert_allclose(per[:, 0:2].numpy(), got[0], atol=1e-6)
     np.testing.assert_allclose(per[:, 6:9].numpy(), got[3], atol=1e-6)
     t_final = torch.exp(fwd.log_t)
@@ -213,36 +217,160 @@ def test_backward_wrappers_cpu_and_validation():
     with pytest.raises(ValueError, match="g_color"):
         raster.rasterize_backward(*args[:11], torch.zeros((H, W, 4)),
                                   *args[12:], W, H, 16, 16)
+    rows = torch.zeros((ba.total_pairs, 11))
     with pytest.raises(ValueError, match="ids"):
-        raster.pairs_to_gaussians(torch.zeros((ba.total_pairs, 11)),
-                                  ba.ids.long(), 10)
+        raster.pairs_to_gaussians(rows, ba.ids.long(), ba.gaussian_slots,
+                                  ba.gaussian_offsets)
+    with pytest.raises(ValueError, match="gaussian_slots"):
+        raster.pairs_to_gaussians(rows, ba.ids, ba.gaussian_slots[1:],
+                                  ba.gaussian_offsets)
+    with pytest.raises(ValueError, match="gaussian_offsets"):
+        raster.pairs_to_gaussians(rows, ba.ids, ba.gaussian_slots,
+                                  ba.gaussian_offsets.long())
+    with pytest.raises(ValueError, match="gaussian_slots"):
+        raster.make_rasterizer(W, H, 3, inference=False)(
+            tp.means2d, tp.depths, tp.conics, tp.colors, tp.opacities,
+            ba.ids, ba.tile_starts, ba.tile_counts, torch.as_tensor(BG))
+
+
+def _cull_stress(seed=4):
+    """Projected inputs of a 64×48 frame that stresses the backward
+    kernel's warp cull: thin Gaussians at ±45° (a few at other angles),
+    centres between tiles and off the image, opacities at, just above and
+    just below 1/255 and at 0.99 or more, and one Gaussian larger than a
+    tile. (means2d, depths, conics, colors, opacities, radii): float32, and
+    per-axis 3σ radii (P, 2) int32 for the binning."""
+    rng = np.random.default_rng(seed)
+    n = 240
+    major = rng.uniform(3.0, 14.0, n)
+    minor = rng.uniform(0.3, 1.2, n)
+    theta = rng.choice([np.pi / 4, -np.pi / 4], n)
+    theta[:40] = rng.uniform(0.0, np.pi, 40)
+    co, si = np.cos(theta), np.sin(theta)
+    cxx = co * co * major ** 2 + si * si * minor ** 2
+    cyy = si * si * major ** 2 + co * co * minor ** 2
+    cxy = co * si * (major ** 2 - minor ** 2)
+    cxx[0] = cyy[0] = 30.0 ** 2       # larger than a tile
+    cxy[0] = 0.0
+    det = cxx * cyy - cxy ** 2
+    conics = np.stack([cyy / det, -cxy / det, cxx / det], 1)
+    means = np.stack([rng.uniform(-20.0, W + 20.0, n),
+                      rng.uniform(-20.0, H + 20.0, n)], 1)
+    means[0] = (W / 2, H / 2)
+    means[1:30] = np.round(means[1:30] / 16.0) * 16.0 - 0.5  # tile corners
+    eps = np.float32(1.0) / np.float32(255.0)
+    op = rng.uniform(0.05, 0.9, n)
+    op[30:60] = eps * (1.0 + rng.uniform(-2e-3, 2e-3, 30))
+    op[60:64] = eps
+    op[64:84] = rng.uniform(0.99, 1.0, 20)
+    radii = np.ceil(3.0 * np.sqrt(np.stack([cxx, cyy], 1)))
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32))
+    return (f32(means), f32(rng.uniform(1.0, 8.0, n)), f32(conics),
+            f32(rng.uniform(0.0, 1.0, (n, 3))), f32(op),
+            torch.as_tensor(radii.astype(np.int32)))
+
+
+def _culled_visible(means2d, conics, opacities, ba, tile_x, tile_y):
+    """(warp, pair) counts over every tile of the frame: those the cull
+    box drops, and those it drops although a pixel of the warp passes the
+    α ≥ 1/255 test of `alpha_from_power` in f32."""
+    boxes = raster.cull_box_torch(means2d, conics, opacities)
+    rects = raster.warp_rects(tile_x, tile_y)
+    gx, _ = tile_grid(W, H, tile_x, tile_y)
+    lin = torch.arange(tile_x * tile_y)
+    culled = dropped = 0
+    for t in range(ba.tile_counts.shape[0]):
+        s, c = int(ba.tile_starts[t]), int(ba.tile_counts[t])
+        if c == 0:
+            continue
+        g = ba.ids[s:s + c].long()
+        ox, oy = (t % gx) * tile_x, (t // gx) * tile_y
+        px = (ox + lin % tile_x).float()[:, None]
+        py = (oy + lin // tile_x).float()[:, None]
+        dx, dy = px - means2d[g, 0], py - means2d[g, 1]
+        a, b, cc = conics[g].unbind(1)
+        power = -0.5 * (a * dx * dx + cc * dy * dy) - b * dx * dy
+        seen = alpha_from_power(power, opacities[g]) > 0          # (pix, k)
+        seen = seen[raster.warp_pixels(tile_x, tile_y)].any(1)    # (warps, k)
+        out = raster.rect_outside(
+            boxes[g][None], (rects + torch.tensor([ox, ox, oy, oy]))[:, None])
+        culled += int(out.sum())
+        dropped += int((out & seen).sum())
+    return culled, dropped
+
+
+@pytest.mark.parametrize("tile_x,tile_y", [(16, 16), (32, 16)])
+def test_cull_stress_no_visible_pair_culled(tile_x, tile_y):
+    """On the cull-stress frame the plain cull box drops many (warp, pair)
+    and never one where a pixel of the warp passes the α test."""
+    m2, dep, con, _, op, radii = _cull_stress()
+    ba = bin_gaussians(m2, dep, radii, W, H, tile_x, tile_y)
+    culled, dropped = _culled_visible(m2, con, op, ba, tile_x, tile_y)
+    assert dropped == 0
+    assert culled > ba.total_pairs      # several warps of a pair, typically
+
+
+@pytest.mark.parametrize("tile_x,tile_y", [(16, 16), (32, 16)])
+def test_cull_stress_backward_matches_autograd(tile_x, tile_y):
+    """The plain backward on the cull-stress frame against torch autograd
+    through the plain forward, at the bar of
+    `test_backward_matches_autograd_of_plain_forward`."""
+    m2, dep, con, col, op, radii = _cull_stress()
+    ba = bin_gaussians(m2, dep, radii, W, H, tile_x, tile_y)
+    gw = [torch.as_tensor(g) for g in _cotangents(11)]
+    bg = torch.as_tensor(BG)
+    grads = []
+    for through_kernel_path in (True, False):
+        ins = [t.clone().requires_grad_(True) for t in (m2, dep, con, col, op)]
+        if through_kernel_path:
+            outs = raster.make_rasterizer(W, H, 3, inference=False,
+                                          tile_x=tile_x, tile_y=tile_y)(
+                *ins, ba.ids, ba.tile_starts, ba.tile_counts, bg,
+                ba.gaussian_slots, ba.gaussian_offsets)
+        else:
+            o = raster.rasterize_forward_torch(
+                *ins, ba.ids, ba.tile_starts, ba.tile_counts, bg, W, H,
+                tile_x, tile_y)
+            outs = (o.color, o.invdepth, o.depth, o.alpha)
+        sum(torch.sum(o * g) for o, g in zip(outs, gw)).backward()
+        grads.append([t.grad.numpy() for t in ins])
+    for g, r, name in zip(*grads, NAMES):
+        np.testing.assert_allclose(g, r, atol=1e-5 * np.abs(r).max(),
+                                   rtol=1e-3, err_msg=name)
+        assert np.abs(g).max() > 0, name
 
 
 def _cuda_case(scene, tile_x, tile_y):
-    _, tp = _scene(scene)
-    tp = type(tp)(*[t.cuda() for t in tp])
-    ba = bin_gaussians(tp.means2d, tp.depths, tp.radii, W, H, tile_x, tile_y)
+    """Backward inputs on the card: a raster test scene by name, or the
+    cull-stress frame ("cull_stress"); returns (arguments, binning)."""
+    if scene == "cull_stress":
+        m2, dep, con, col, op, radii = (t.cuda() for t in _cull_stress())
+    else:
+        _, tp = _scene(scene)
+        m2, dep, con, col, op, radii = (
+            t.cuda() for t in (tp.means2d, tp.depths, tp.conics, tp.colors,
+                               tp.opacities, tp.radii))
+    ba = bin_gaussians(m2, dep, radii, W, H, tile_x, tile_y)
     bg = torch.as_tensor(BG, device="cuda")
-    fwd = raster.rasterize_forward(tp.means2d, tp.depths, tp.conics,
-                                   tp.colors, tp.opacities, ba.ids,
+    fwd = raster.rasterize_forward(m2, dep, con, col, op, ba.ids,
                                    ba.tile_starts, ba.tile_counts, bg, W, H,
                                    tile_x, tile_y, True)
     gw = [torch.as_tensor(g, device="cuda") for g in _cotangents()]
-    return (tp.means2d, tp.depths, tp.conics, tp.colors, tp.opacities,
-            ba.ids, ba.tile_starts, ba.tile_counts, bg, fwd.log_t,
-            fwd.n_contrib, *gw, W, H, tile_x, tile_y)
+    return (m2, dep, con, col, op, ba.ids, ba.tile_starts, ba.tile_counts,
+            bg, fwd.log_t, fwd.n_contrib, *gw, W, H, tile_x, tile_y), ba
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("scene", testing.RASTER_SCENES)
+@pytest.mark.parametrize("scene", testing.RASTER_SCENES + ("cull_stress",))
 @pytest.mark.parametrize("tile_x,tile_y", [(16, 16), (32, 16)])
 def test_cuda_backward_matches_plain(scene, tile_x, tile_y):
     """K3 and the segment sum against their plain versions: per-pair and
     per-Gaussian rows within 1e-5 of the largest (f32 sums over a tile's
-    pixels in another order); two kernel runs bitwise equal."""
+    pixels in another order); two kernel runs bitwise equal. The
+    cull-stress frame holds the warp cull to the same bar."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
-    args = _cuda_case(scene, tile_x, tile_y)
+    args, ba = _cuda_case(scene, tile_x, tile_y)
     before = raster.rasterize_backward.launches
     out = raster.rasterize_backward(*args)
     again = raster.rasterize_backward(*args)
@@ -253,9 +381,32 @@ def test_cuda_backward_matches_plain(scene, tile_x, tile_y):
     scale = float(ref.abs().max())
     torch.testing.assert_close(out, ref, atol=1e-5 * scale, rtol=0)
     ids, P = args[5], args[0].shape[0]
-    per = raster.pairs_to_gaussians(out, ids, P)
-    assert torch.equal(per, raster.pairs_to_gaussians(again, ids, P))
+    order = (ba.gaussian_slots, ba.gaussian_offsets)
+    per = raster.pairs_to_gaussians(out, ids, *order)
+    assert torch.equal(per, raster.pairs_to_gaussians(again, ids, *order))
     per_ref = raster.pairs_to_gaussians_torch(out.cpu(), ids.cpu(), P)
     torch.testing.assert_close(per.cpu(), per_ref,
                                atol=1e-6 * float(per_ref.abs().max()),
                                rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scene", ("multichunk", "cull_stress"))
+def test_cuda_segment_sum_binning_order_is_bitwise_the_sort_order(scene):
+    """The segment sum over the binning's per-Gaussian order equals, bit
+    for bit, the same call over a stable sort of the ids on the same pair
+    rows (the order the wrapper sorted for on every call before)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    args, ba = _cuda_case(scene, 16, 16)
+    ids, P = args[5], args[0].shape[0]
+    pairs = raster.rasterize_backward(*args)
+    slots = torch.sort(ids, stable=True).indices.to(torch.int32)
+    offsets = torch.zeros(P + 1, dtype=torch.int32, device="cuda")
+    offsets[1:] = torch.cumsum(torch.bincount(ids, minlength=P), 0)
+    got = raster.pairs_to_gaussians(pairs, ids, ba.gaussian_slots,
+                                    ba.gaussian_offsets)
+    want = raster.pairs_to_gaussians(pairs, ids, slots, offsets)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert int((got != 0).any(1).sum()) > 0
