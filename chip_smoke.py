@@ -11,7 +11,9 @@ Phases, one line each or more, any failure exits non-zero:
                ptxas registers and spills
   3 kernel     the forward kernel against its plain PyTorch version at 64x48
                on the rasterizer test scenes, both instantiations (n_contrib
-               and log T_final too), both tile shapes
+               and log T_final too), both tile shapes; and on the frame
+               built to stress the warp cull (16x8 too), with both
+               versions' log T_final against float64 sums
   4 bwd        the backward kernel (K3) and the per-Gaussian segment sum
                against their plain versions on the same scenes at 16x16 and
                32x16, per pair and per Gaussian; then one 800x800 training
@@ -19,7 +21,9 @@ Phases, one line each or more, any failure exits non-zero:
                on the same inputs bitwise equal, the segment sum in the
                binning's order bitwise equal to a stable sort's; at 800p
                K3's (warp, pair) work: replayed, with a contributing lane,
-               culled (none of them contributing)
+               culled (none of them contributing); and the forward's:
+               walked, with a lane that blends or stops, culled (none of
+               them with such a lane)
   5 train      the `bench.py:126-155` configuration (800x800, 100k Gaussians
                from create_from_pcd, SH 3, lgdwt losses, patch 128) through
                `train_step`: 3 warm-up and 20 timed steps on a fixed view
@@ -46,7 +50,8 @@ Phases, one line each or more, any failure exits non-zero:
                reach the ln 1e-4 stop; times and bounds
   7 render     a 200k-Gaussian SH-degree-3 model (saved and re-loaded as PLY)
                rendered from 20 orbit cameras at 1920x1080 through
-               renderer.render; frame 0 against the plain version; timings
+               renderer.render; frame 0 against the plain version, the
+               forward's (warp, pair) work as in phase 4; timings
   8 cli        render + metrics CLIs on an 800x800 Blender-layout scene whose
                ground truth is the plain version's render
 Each path (train, probes, render) is driven with the kernels' launch
@@ -169,10 +174,20 @@ SKIP_OPS = 17
 
 def fwd_ops_per_contrib(C: int) -> int:
     """The forward kernel per contributing (pair, pixel): offsets 2,
-    quadratic form 9, clamp/exp/opacity/clamp 4, log1p and its add 2, exp
-    of log T and the weight 2, payload FMAs 2(C+2). The pair that stops a
-    pixel costs SKIP_OPS + 3 (log1p, its add, the stop test)."""
+    quadratic form 9, clamp/exp/opacity/clamp 4, log1p and its add 2, the
+    weight α·T and the transmittance's update 2, payload FMAs 2(C+2). The
+    pair that stops a pixel costs SKIP_OPS + 3 (log1p, its add, the stop
+    test)."""
     return 2 + 9 + 4 + 2 + 2 + 2 * (C + 2)
+
+
+def blend_ops(C: int, contrib: int, stops: int, skipped: int = 0) -> int:
+    """The operations a forward blend needs: each contributing (pair,
+    pixel) and each pixel's stop. A skipped evaluation (power > 0 or α <
+    1/255) adds nothing to the result, so the bound counts none; `skipped`
+    adds SKIP_OPS for each, the looser figure logged beside it."""
+    return (contrib * fwd_ops_per_contrib(C) + stops * (SKIP_OPS + 3)
+            + skipped * SKIP_OPS)
 
 
 def bwd_ops_per_contrib(C: int) -> int:
@@ -230,8 +245,34 @@ def phase_device() -> str:
     return card
 
 
+def _ptxas(out: str) -> list:
+    """ptxas -v output → [(kernel, registers, spill bytes)], a template
+    kernel named with its integer and bool arguments, e.g.
+    raster_fwd_kernel<3,1>."""
+    res = []
+    for line in out.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            k = re.search(r"(?<=\d)([a-z_]+_kernel)(?:I((?:L[ib]\d+E)+)E)?",
+                          m.group(1))
+            args = re.findall(r"L[ib](\d+)E", k.group(2) or "") if k else []
+            name = k.group(1) if k else m.group(1)
+            res.append([name + (f"<{','.join(args)}>" if args else ""), 0,
+                        0])
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and res:
+            res[-1][2] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and res:
+            res[-1][1] = int(m.group(1))
+    return res
+
+
 def phase_build() -> None:
-    """Every source through nvcc at once, one process each."""
+    """Every source through nvcc at once, one process each; ptxas'
+    registers and spill bytes of each kernel."""
     from sparse_view_3dgs_pack_tpu_torch.ops import _build
     t0 = time.perf_counter()
     names = ("raster_fwd", "raster_bwd", "probes")
@@ -240,12 +281,11 @@ def phase_build() -> None:
     secs = time.perf_counter() - t0
     for name, (path, out) in built.items():
         _build.load(name)
-        regs = [int(m) for m in re.findall(r"Used (\d+) registers", out)]
-        spills = sum(int(m) for m in re.findall(r"(\d+) bytes spill", out))
+        usage = _ptxas(out)
         log("build", f"{os.path.relpath(path, REPO)}"
-                     + (f"; ptxas: {len(regs)} kernels, registers "
-                        f"{min(regs)}-{max(regs)}, {spills} spill bytes"
-                        if regs else " (already built)"))
+                     + ("; ptxas (kernel: registers, spill bytes): "
+                        + ", ".join(f"{k}: {r}, {b}" for k, r, b in usage)
+                        if usage else " (already built)"))
     log("build", f"{len(names)} sources in {secs:.1f} s")
 
 
@@ -284,7 +324,9 @@ def _project_model(model, cam, sh_degree=None):
 
 
 def phase_kernels(device) -> float:
-    """Forward kernel vs plain version on the small scenes; returns the
+    """Forward kernel vs plain version on the small scenes and on the
+    frame built to stress the warp cull, where both versions' log T_final
+    are also read against float64 sums (`testing.log_t_f64`); returns the
     largest error seen."""
     from sparse_view_3dgs_pack_tpu_torch import testing
     from sparse_view_3dgs_pack_tpu_torch.ops.binning import bin_gaussians
@@ -292,11 +334,17 @@ def phase_kernels(device) -> float:
         rasterize_forward, rasterize_forward_torch)
     W, H = testing.RASTER_W, testing.RASTER_H
     bg = torch.tensor([0.1, 0.2, 0.3], device=device)
-    worst = 0.0
+    frames = {}
     for name in testing.RASTER_SCENES:
         cloud, cam = testing.raster_scene(name)
-        proj = _project_model(_model(cloud).to(device), cam)
-        for tx, ty in ((16, 16), (32, 16)):
+        frames[name] = _project_model(_model(cloud).to(device), cam)
+    m2, dep, con, col, op, radii = testing.cull_stress_frame(device=device)
+    frames["cull_stress"] = Namespace(means2d=m2, depths=dep, conics=con,
+                                      colors=col, opacities=op, radii=radii)
+    worst = 0.0
+    for name, proj in frames.items():
+        stress = name == "cull_stress"
+        for tx, ty in ((16, 16), (32, 16)) + (((16, 8),) if stress else ()):
             ba = bin_gaussians(proj.means2d, proj.depths, proj.radii, W, H,
                                tx, ty)
             args = _raster_args(proj, ba, bg)
@@ -305,6 +353,20 @@ def phase_kernels(device) -> float:
                 ref = rasterize_forward_torch(*args, W, H, tx, ty, n_contrib)
                 torch.cuda.synchronize()
                 errs = max_errs(out, ref)
+                if n_contrib and stress:
+                    exact = [testing.log_t_f64(
+                        proj.means2d, proj.conics, proj.opacities, ba.ids,
+                        ba.tile_starts, ba.tile_counts, out.n_contrib, W, H,
+                        tx, ty, f32) for f32 in (False, True)]
+                    e = lambda a, b: float((a.double() - b).abs().max())
+                    log("kernel", f"{name} {tx}x{ty} log T_final against "
+                                  f"its float64 sum: kernel "
+                                  f"{e(out.log_t, exact[0]):.3g}, plain "
+                                  f"{e(ref.log_t, exact[0]):.3g}; against "
+                                  f"the float64 sum of the plain version's "
+                                  f"float32 terms: kernel "
+                                  f"{e(out.log_t, exact[1]):.3g}, plain "
+                                  f"{e(ref.log_t, exact[1]):.3g}")
                 msg = " ".join(f"{k}={v:.3g}" for k, v in errs.items())
                 if n_contrib:
                     diff = int((out.n_contrib != ref.n_contrib).sum())
@@ -426,33 +488,55 @@ def _train_setup(device):
 class Work(NamedTuple):
     """What this run's data asks of the rasterizer kernels, in (pair, pixel)
     evaluations: both replay each pixel's pairs before its stop (n_contrib
-    of them), the forward also evaluates the pair that stops it. K3 works
-    per (warp, pair): a warp replays the pairs below its largest n_contrib,
-    reduces a pair's gradients over its lanes where one contributes, and
-    skips a pair whose cull box misses the warp's pixel rectangle."""
+    of them), the forward also evaluates the pair that stops it. Both work
+    per (warp, pair), counted here for one layout of the warps
+    (`raster.warp_pixels`), and skip a pair whose cull box misses the warp's
+    pixel rectangle. K3 (2 pixels per thread) replays the pairs
+    below the warp's largest n_contrib and reduces a pair's gradients over
+    its lanes where one contributes; the forward walks the pairs up to the
+    last one that stops a pixel of the warp (the tile's count if one does
+    not stop), and a lane is live at a pair that it blends or that stops
+    it."""
     before_stop: int   # sum of n_contrib
     skipped: int       # of those, skipped: power > 0 or alpha < 1/255
     stops: int         # pixels that stop before their tile's last pair
-    warp_pairs: int    # (warp, pair) below the warp's largest n_contrib
+    warp_pairs: int    # K3: (warp, pair) below the warp's largest n_contrib
     warp_contrib: int  # of those, with a contributing lane
     warp_culled: int   # of those, outside the warp's cull box
     culled_contrib: int  # culled yet with a contributing lane: must be 0
+    fwd_pairs: int     # forward: (warp, pair) up to the warp's last stop
+    fwd_walked: int    # of those, inside the warp's cull box: walked
+    fwd_live: int      # of those, with a live lane
+    fwd_culled_live: int  # culled yet with a live lane: must be 0
 
-    def fwd_ops(self, C: int) -> int:
-        return ((self.before_stop - self.skipped) * fwd_ops_per_contrib(C)
-                + self.skipped * SKIP_OPS + self.stops * (SKIP_OPS + 3))
+    def fwd_line(self) -> str:
+        return (f"forward per (warp, pair): {self.fwd_pairs} up to the "
+                f"warp's last stop, {self.fwd_walked} walked "
+                f"({100 * self.fwd_walked / max(self.fwd_pairs, 1):.1f}%; "
+                f"{self.fwd_pairs - self.fwd_walked} culled), "
+                f"{self.fwd_live} with a lane that blends or stops "
+                f"({100 * self.fwd_live / max(self.fwd_walked, 1):.1f}% of "
+                f"the walked), {self.fwd_culled_live} culled with such a "
+                f"lane")
 
-    def bwd_ops(self, C: int) -> int:
+    def fwd_ops(self, C: int, with_skips: bool = False) -> int:
+        return blend_ops(C, self.before_stop - self.skipped, self.stops,
+                         self.skipped if with_skips else 0)
+
+    def bwd_ops(self, C: int, with_skips: bool = False) -> int:
+        """K3 needs each contributing (pair, pixel); `with_skips` also
+        charges SKIP_OPS for each skipped one before the stops."""
         return ((self.before_stop - self.skipped) * bwd_ops_per_contrib(C)
-                + self.skipped * SKIP_OPS)
+                + (self.skipped * SKIP_OPS if with_skips else 0))
 
 
-def _work(proj, ba, n_contrib, W, H, tx, ty) -> Work:
+def _work(proj, ba, n_contrib, W, H, tx, ty, pixels: int) -> Work:
     """Counts each pixel's evaluations before its stop and, with the
     kernels' own expression and test, the skipped ones among them; per
-    (warp, pair), the replayed, contributing and culled ones (the cull box
-    of `raster.cull_box_torch`). Tiles in batches, pairs in chunks, on the
-    card."""
+    (warp, pair) of warps whose threads cover `pixels` rows, K3's replayed,
+    contributing and culled ones and the forward's walked, live and culled
+    ones (the cull box of `raster.cull_box_torch`). Tiles in batches, pairs
+    in chunks, on the card."""
     from sparse_view_3dgs_pack_tpu_torch.ops import raster
     from sparse_view_3dgs_pack_tpu_torch.ops.binning import tile_grid
     from sparse_view_3dgs_pack_tpu_torch.ops.blending import (ALPHA_EPS,
@@ -460,7 +544,7 @@ def _work(proj, ba, n_contrib, W, H, tx, ty) -> Work:
     dev = n_contrib.device
     gx, gy = tile_grid(W, H, tx, ty)
     pix = tx * ty
-    warp_pix = raster.warp_pixels(tx, ty).to(dev)      # (nw, pixels)
+    warp_pix = raster.warp_pixels(tx, ty, pixels).to(dev)   # (nw, 32 px)
     nw = warp_pix.shape[0]
     nc = n_contrib.to(torch.int64)
     counts = ba.tile_counts.to(torch.int64)
@@ -471,16 +555,19 @@ def _work(proj, ba, n_contrib, W, H, tx, ty) -> Work:
     nc_t = torch.nn.functional.pad(nc, (0, gx * tx - W, 0, gy * ty - H))
     nc_t = nc_t.reshape(gy, ty, gx, tx).permute(0, 2, 1, 3).reshape(-1, pix)
     warp_max = nc_t[:, warp_pix].max(2).values               # (tiles, nw)
+    # the forward's walk: through the pair that stops the warp's last pixel
+    fwd_end = torch.minimum(warp_max + 1, counts[:, None])   # (tiles, nw)
     boxes = raster.cull_box_torch(proj.means2d, proj.conics, proj.opacities)
-    rects = raster.warp_rects(tx, ty).to(dev)
+    rects = raster.warp_rects(tx, ty, pixels).to(dev)
     lin = torch.arange(pix, device=dev)
     lx, ly = (lin % tx).to(torch.float32), (lin // tx).to(torch.float32)
-    deepest = nc_t.max(1).values
+    deepest = fwd_end.max(1).values
     order = torch.argsort(deepest, descending=True)
     depth_sorted = deepest[order].tolist()
     chunk = 256
     tb = max(1, (1 << 24) // (pix * chunk))
     skipped = warp_contrib = warp_culled = culled_contrib = 0
+    fwd_walked = fwd_live = fwd_culled_live = 0
     for b0 in range(0, order.shape[0], tb):
         kmax = depth_sorted[b0]
         if kmax == 0:
@@ -491,8 +578,9 @@ def _work(proj, ba, n_contrib, W, H, tx, ty) -> Work:
         origin = torch.stack([tsel % gx * tx, tsel % gx * tx,
                               tsel // gx * ty, tsel // gx * ty], 1)
         rect_b = (origin[:, None, None, :] + rects[None, :, None, :])
-        wmax_b = warp_max[tsel]
+        wmax_b, fend_b = warp_max[tsel], fwd_end[tsel]
         nc_b, st = nc_t[tsel], ba.tile_starts.to(torch.int64)[tsel]
+        cnt_b = counts[tsel]
         for k0 in range(0, kmax, chunk):
             k = torch.arange(k0, min(k0 + chunk, kmax), device=dev)
             slot = torch.clamp(st[:, None] + k[None, :],
@@ -515,8 +603,16 @@ def _work(proj, ba, n_contrib, W, H, tx, ty) -> Work:
             warp_contrib += int(contrib.sum())
             warp_culled += int((below & outside).sum())
             culled_contrib += int((contrib & outside).sum())
+            live = ((k[None, None, :] <= nc_b[:, :, None])
+                    & (k[None, :] < cnt_b[:, None])[:, None, :]
+                    & ~skip)[:, warp_pix].any(2)               # (B, nw, K)
+            walk = k[None, None, :] < fend_b[:, :, None]
+            fwd_walked += int((walk & ~outside).sum())
+            fwd_live += int(live.sum())
+            fwd_culled_live += int((live & outside).sum())
     return Work(int(nc.sum()), skipped, stops, int(warp_max.sum()),
-                warp_contrib, warp_culled, culled_contrib)
+                warp_contrib, warp_culled, culled_contrib,
+                int(fwd_end.sum()), fwd_walked, fwd_live, fwd_culled_live)
 
 
 def _stop_f64(proj, ba, pixels, W, tx, ty) -> list:
@@ -544,16 +640,18 @@ def _stop_f64(proj, ba, pixels, W, tx, ty) -> list:
     return out
 
 
-def _fwd_bound(P, C, n_pairs, num_tiles, W, H, work: Work, training: bool):
+def _fwd_bound(P, C, n_pairs, num_tiles, W, H, work: Work, training: bool,
+               with_skips: bool = False):
     n_bytes = (P * (2 + 1 + 3 + C + 1) + n_pairs + 2 * num_tiles + C) * 4 \
         + W * H * (C + 3 + (2 if training else 0)) * 4
-    return bound(n_bytes, work.fwd_ops(C))
+    return bound(n_bytes, work.fwd_ops(C, with_skips))
 
 
-def _bwd_bound(P, C, n_pairs, num_tiles, W, H, work: Work):
+def _bwd_bound(P, C, n_pairs, num_tiles, W, H, work: Work,
+               with_skips: bool = False):
     n_bytes = ((P * (2 + 1 + 3 + C + 1) + n_pairs + 2 * num_tiles + C) * 4
                + W * H * (C + 5) * 4 + n_pairs * (C + 8) * 4)
-    return bound(n_bytes, work.bwd_ops(C))
+    return bound(n_bytes, work.bwd_ops(C, with_skips))
 
 
 def _segsum_bound(P, K, n_pairs):
@@ -620,9 +718,14 @@ def phase_bwd_full(model, cams, device) -> dict:
     t_seg_lib = cuda_ms(lambda: torch.zeros((P, K), device=device)
                         .index_add_(0, ids64, pairs), 20)
     t_sort = cuda_ms(lambda: _sort_order(ids, P), 20)
-    work = _work(proj, ba, fwd.n_contrib, W, H, tx, ty)
+    # one count serves both kernels: the training forward has K3's layout
+    if raster.fwd_pixels(True) != raster.BWD_PIXELS:
+        raise AssertionError("the training forward and K3 differ in layout")
+    work = _work(proj, ba, fwd.n_contrib, W, H, tx, ty, raster.BWD_PIXELS)
     fb = _fwd_bound(P, C, n_pairs, num_tiles, W, H, work, True)
     bb = _bwd_bound(P, C, n_pairs, num_tiles, W, H, work)
+    fb_skips = _fwd_bound(P, C, n_pairs, num_tiles, W, H, work, True, True)
+    bb_skips = _bwd_bound(P, C, n_pairs, num_tiles, W, H, work, True)
     sb = _segsum_bound(P, K, n_pairs)
     log("bwd", f"{W}x{H} work: {work.before_stop} (pair, pixel) evaluations "
                f"before the stops, {work.skipped} of them skipped "
@@ -635,15 +738,20 @@ def phase_bwd_full(model, cams, device) -> dict:
                f"{work.warp_culled} outside the warp's cull box "
                f"({100 * work.warp_culled / work.warp_pairs:.1f}%), "
                f"{work.culled_contrib} culled with a contributing lane")
-    if work.culled_contrib:
+    log("bwd", f"{W}x{H} {work.fwd_line()}")
+    if work.culled_contrib or work.fwd_culled_live:
         raise AssertionError(f"the cull box drops {work.culled_contrib} "
-                             f"(warp, pair) with a contributing lane")
+                             f"(warp, pair) with a contributing lane (K3), "
+                             f"{work.fwd_culled_live} with a live one "
+                             f"(forward)")
     log("bwd", f"{W}x{H} training shape: raster_fwd {t_fwd:.3f} ms (plain "
-               f"{t_fwd_plain:.1f}, bound {fb[0]:.4f} by {fb[1]}); "
+               f"{t_fwd_plain:.1f}, bound {fb[0]:.4f} by {fb[1]}; "
+               f"{fb_skips[0]:.4f} with the skipped evaluations); "
                f"raster_bwd {t_bwd:.3f} ms through its wrapper, the pair "
                f"buffer allocated empty (no zero fill of "
                f"{n_pairs * K * 4 / 1e6:.1f} MB) (plain "
-               f"{t_bwd_plain:.1f}, bound {bb[0]:.4f} by {bb[1]}); "
+               f"{t_bwd_plain:.1f}, bound {bb[0]:.4f} by {bb[1]}; "
+               f"{bb_skips[0]:.4f} with the skipped evaluations); "
                f"segment_sum {t_seg:.3f} ms in the binning's order (plain "
                f"{t_seg_plain:.3f}, index_add_ {t_seg_lib:.3f}, bound "
                f"{sb[0]:.4f} by {sb[1]}; a stable sort of the ids with "
@@ -1191,8 +1299,7 @@ def _probe_full(device) -> dict:
     n_eval = int(evals.sum())
     stops = int((nc < probes.CHUNK).sum())
     b2 = bound(P * (6 + C + 1) * 4 + pair_bytes + out_bytes,
-               (n_eval - skipped) * fwd_ops_per_contrib(C)
-               + skipped * SKIP_OPS + stops * (SKIP_OPS + 3))
+               blend_ops(C, n_eval - skipped, stops))
     log("probes", f"{W}x{H} D1: {t_d1:.3f} ms, with the walk {t_walk:.3f} ms"
                   f", plain {t_d1_plain:.1f} ms, bound {b1[0]:.4f} ms by "
                   f"{b1[1]} ({n_lanes} lanes x 256 pixels)")
@@ -1258,7 +1365,7 @@ def phase_render(device, work: str):
     from sparse_view_3dgs_pack_tpu_torch.models import gaussians as gm
     from sparse_view_3dgs_pack_tpu_torch.ops.binning import bin_gaussians
     from sparse_view_3dgs_pack_tpu_torch.ops.raster import (
-        rasterize_forward, rasterize_forward_torch)
+        fwd_pixels, rasterize_forward, rasterize_forward_torch)
     from sparse_view_3dgs_pack_tpu_torch.renderer import (INFER_TILE_X,
                                                           INFER_TILE_Y, render)
     W, H = RENDER_W, RENDER_H
@@ -1335,17 +1442,24 @@ def phase_render(device, work: str):
     t_plain = cuda_ms(lambda: rasterize_forward_torch(*args), 3)
     nc = rasterize_forward(*args[:-4], W, H, INFER_TILE_X, INFER_TILE_Y,
                            True).n_contrib
-    work = _work(proj, ba, nc, W, H, INFER_TILE_X, INFER_TILE_Y)
-    fb = _fwd_bound(proj.means2d.shape[0], 3, ba.total_pairs,
-                    ba.tile_counts.shape[0], W, H, work, False)
+    work = _work(proj, ba, nc, W, H, INFER_TILE_X, INFER_TILE_Y,
+                 fwd_pixels(False))
+    fb, fb_skips = (_fwd_bound(proj.means2d.shape[0], 3, ba.total_pairs,
+                               ba.tile_counts.shape[0], W, H, work, False,
+                               with_skips) for with_skips in (False, True))
     log("render", f"frame0 work: {work.before_stop} (pair, pixel) "
                   f"evaluations before the stops, {work.skipped} skipped "
                   f"({100 * work.skipped / work.before_stop:.1f}%), "
                   f"{work.stops} pixels stop early")
+    log("render", f"frame0 {work.fwd_line()}")
+    if work.fwd_culled_live:
+        raise AssertionError(f"the cull box drops {work.fwd_culled_live} "
+                             f"(warp, pair) with a live lane at 1080p")
     log("render", f"frame0 stages: projection {t_proj:.3f} ms, binning "
                   f"{t_bin:.3f} ms (one host sync for the pair count), "
                   f"raster kernel {t_kernel:.3f} ms (bound {fb[0]:.4f} ms by "
-                  f"{fb[1]}); plain raster {t_plain:.3f} ms "
+                  f"{fb[1]}; {fb_skips[0]:.4f} with the skipped "
+                  f"evaluations); plain raster {t_plain:.3f} ms "
                   f"({t_plain / t_kernel:.1f}x the kernel)")
     return ply, {"raster_fwd": dict(
         launches=counts["raster_fwd"],

@@ -91,6 +91,9 @@
 
 namespace {
 
+using raster::cp_async4;
+using raster::cp_async_commit;
+using raster::cp_async_wait;
 using raster::kAlphaMax;
 
 constexpr int kMaxTilePixels = 512;
@@ -105,22 +108,6 @@ static_assert(1 << kHalvings == kGroup, "kHalvings is lg(kGroup)");
 constexpr int kSmWarps = 20;
 constexpr int kRec = 16;     // packed record: mx my a b | c op - - | payload
 constexpr unsigned kFullMask = 0xffffffffu;
-
-__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-               "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// Wait until at most N of this thread's committed groups are in flight.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 template <int C>
 struct Smem {

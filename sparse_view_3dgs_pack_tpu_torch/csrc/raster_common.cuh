@@ -1,6 +1,8 @@
-// What the tile rasterizer kernels share: the per-(pair, pixel) evaluation
-// (power, alpha and the skip test of the forward kernel) and the per-pair
-// cull box that a warp tests its pixel rectangle against.
+// What the tile rasterizer kernels (csrc/raster_fwd.cu, csrc/raster_bwd.cu)
+// share: the constants of the blend, the per-(pair, pixel) evaluation (power,
+// alpha and the skip test), the per-pair cull box that a warp tests its
+// pixel rectangle against, that rectangle, and the cp.async helpers that
+// stage pairs into shared memory.
 //
 // The cull box's plain version is `cull_box_torch` in ops/raster.py (the same
 // arithmetic in the same order, no contracted multiply-adds); its constants
@@ -15,6 +17,7 @@ namespace raster {
 
 constexpr float kAlphaMax = 0.99f;
 constexpr float kAlphaEps = 1.0f / 255.0f;
+constexpr float kLogTEps = -9.210340371976182f;  // logf(1e-4): the stop
 constexpr float kCullSlack = 64.0f / 8388608.0f;  // 64 * 2^-23
 constexpr float kCullMaxSlack = 0.25f;
 constexpr float kCullMargin = 1.0f;
@@ -22,7 +25,10 @@ constexpr float kCullSpan = 65536.0f;
 
 // One (pair, pixel) evaluation: power = -1/2 d^T Q d with d = pixel - mean,
 // G = exp(min(power, 0)), alpha = min(0.99, op G); the pair is skipped
-// where power > 0 or alpha < 1/255.
+// where power > 0 or alpha < 1/255. The quadratic form is rounded term by
+// term in the plain version's order, with no contracted multiply-add: for a
+// thin Gaussian its terms cancel, and contracting them moved log T_final up
+// to 2e-5 from the plain version's on the cull-stress frame (PERF.md).
 struct Eval {
   float dx, dy, power, G, alpha_raw, alpha;
   bool skip;
@@ -34,7 +40,10 @@ __device__ __forceinline__ Eval eval_pair(float fx, float fy, float mx,
   Eval e;
   e.dx = fx - mx;
   e.dy = fy - my;
-  e.power = -0.5f * (a * e.dx * e.dx + c * e.dy * e.dy) - b * e.dx * e.dy;
+  e.power = __fsub_rn(
+      __fmul_rn(-0.5f, __fadd_rn(__fmul_rn(__fmul_rn(a, e.dx), e.dx),
+                                 __fmul_rn(__fmul_rn(c, e.dy), e.dy))),
+      __fmul_rn(__fmul_rn(b, e.dx), e.dy));
   e.G = expf(fminf(e.power, 0.0f));
   e.alpha_raw = op * e.G;
   e.alpha = fminf(kAlphaMax, e.alpha_raw);
@@ -96,6 +105,23 @@ __device__ __forceinline__ float4 warp_rect(int w, int tile_x, int pix,
 
 __device__ __forceinline__ bool rect_outside(float4 box, float4 rect) {
   return rect.y < box.x || rect.x > box.y || rect.w < box.z || rect.z > box.w;
+}
+
+// One 4-byte asynchronous copy from device to shared memory.
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 }  // namespace raster

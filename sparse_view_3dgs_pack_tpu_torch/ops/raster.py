@@ -95,11 +95,21 @@ def _device_of(args) -> torch.device:
     return dev
 
 
-def _check_tile(tile_x, tile_y):
+def fwd_pixels(compute_n_contrib: bool) -> int:
+    """Pixels per thread of the forward kernel: 2 in the training
+    instantiation (the backward's layout), 4 in the inference one
+    (`pixels_per_thread` in csrc/raster_fwd.cu)."""
+    return 2 if compute_n_contrib else 4
+
+
+def _check_tile(tile_x, tile_y, pixels, kernel):
+    """The tiles a CUDA kernel with `pixels` rows per thread takes: at most
+    MAX_TILE_PIXELS pixels, whole rows per thread and whole warps."""
     n = tile_x * tile_y
-    if n > MAX_TILE_PIXELS or n % 32:
-        raise ValueError(f"tile {tile_x}x{tile_y}: pixels per tile must be a "
-                         f"multiple of 32 and <= {MAX_TILE_PIXELS}")
+    if n > MAX_TILE_PIXELS or tile_y % pixels or (n // pixels) % 32:
+        raise ValueError(f"tile {tile_x}x{tile_y}: the {kernel} kernel takes "
+                         f"at most {MAX_TILE_PIXELS} pixels, {pixels} rows "
+                         f"per thread and whole warps of threads")
 
 
 def _check_contiguous(name, tensors):
@@ -147,7 +157,7 @@ def _rasterize_forward_cuda(means2d, depths, conics, colors, opacities, ids,
     C, grid_x, grid_y = _check(means2d, depths, conics, colors, opacities,
                                ids, starts, counts, bg, width, height,
                                tile_x, tile_y)
-    _check_tile(tile_x, tile_y)
+    _check_tile(tile_x, tile_y, fwd_pixels(compute_n_contrib), "forward")
     ins = (means2d, conics, opacities, colors, depths, ids, starts, counts,
            bg)
     _check_contiguous("rasterize_forward", ins)
@@ -300,8 +310,8 @@ def _tile(img, width, height, tile_x, tile_y):
 def cull_box_torch(means2d, conics, opacities) -> torch.Tensor:
     """(P, 4) float32 [x_lo, x_hi, y_lo, y_hi] per Gaussian: no pixel (x, y)
     with coordinates in [0, CULL_SPAN) outside the box passes the α ≥ 1/255
-    test of `alpha_from_power` in f32. Plain version of the backward
-    kernel's per-warp cull (`csrc/raster_common.cuh::cull_box`, the same
+    test of `alpha_from_power` in f32. Plain version of the tile kernels'
+    per-warp cull (`csrc/raster_common.cuh::cull_box`, the same
     arithmetic in the same order); used by the tests and `chip_smoke.py`.
 
     op·exp(power) ≥ 1/255 ⇔ ½dᵀQd ≤ t = ln(255·op), so |dx| ≤ √(2t·c/det)
@@ -335,22 +345,22 @@ def cull_box_torch(means2d, conics, opacities) -> torch.Tensor:
     return torch.where((finite & (op < ALPHA_EPS))[:, None], empty, box)
 
 
-def warp_pixels(tile_x: int, tile_y: int) -> torch.Tensor:
-    """(warps, 32 · BWD_PIXELS) int64: the pixels (row-major index in the
-    tile) that each warp of the backward kernel replays. Thread t covers
-    column t % tile_x of the BWD_PIXELS rows BWD_PIXELS · (t // tile_x) + i;
-    warp w holds threads 32w … 32w + 31."""
-    t = torch.arange(tile_x * tile_y // BWD_PIXELS)
-    rows = BWD_PIXELS * (t // tile_x)[:, None] + torch.arange(BWD_PIXELS)
-    return (rows * tile_x + (t % tile_x)[:, None]).reshape(
-        -1, 32 * BWD_PIXELS)
+def warp_pixels(tile_x: int, tile_y: int, pixels: int) -> torch.Tensor:
+    """(warps, 32 · pixels) int64: the pixels (row-major index in the tile)
+    that each warp of a tile kernel with `pixels` pixels per thread blends
+    or replays (BWD_PIXELS for the backward, `fwd_pixels` for the forward).
+    Thread t covers column t % tile_x of the rows pixels · (t // tile_x) + i,
+    i < pixels; warp w holds threads 32w … 32w + 31."""
+    t = torch.arange(tile_x * tile_y // pixels)
+    rows = pixels * (t // tile_x)[:, None] + torch.arange(pixels)
+    return (rows * tile_x + (t % tile_x)[:, None]).reshape(-1, 32 * pixels)
 
 
-def warp_rects(tile_x: int, tile_y: int) -> torch.Tensor:
+def warp_rects(tile_x: int, tile_y: int, pixels: int) -> torch.Tensor:
     """(warps, 4) int64 [x0, x1, y0, y1]: the pixel rectangle (inclusive,
     relative to the tile's origin) that holds each warp's pixels
     (`warp_pixels`; `csrc/raster_common.cuh::warp_rect`)."""
-    pix = warp_pixels(tile_x, tile_y)
+    pix = warp_pixels(tile_x, tile_y, pixels)
     x, y = pix % tile_x, pix // tile_x
     return torch.stack([x.amin(1), x.amax(1), y.amin(1), y.amax(1)], 1)
 
@@ -408,10 +418,7 @@ def _rasterize_backward_cuda(means2d, depths, conics, colors, opacities, ids,
                                tile_x, tile_y)
     _check_backward(ids, log_t, n_contrib, g_color, g_invdepth, g_depth,
                     g_alpha, width, height, C)
-    _check_tile(tile_x, tile_y)
-    if tile_y % BWD_PIXELS or (tile_x * tile_y // BWD_PIXELS) % 32:
-        raise ValueError(f"tile {tile_x}x{tile_y}: the backward kernel takes "
-                         f"{BWD_PIXELS} rows per thread and whole warps")
+    _check_tile(tile_x, tile_y, BWD_PIXELS, "backward")
     ins = (means2d, conics, opacities, colors, depths, ids, starts, counts,
            bg, log_t, n_contrib, g_color, g_invdepth, g_depth, g_alpha)
     _check_contiguous("rasterize_backward", ins)

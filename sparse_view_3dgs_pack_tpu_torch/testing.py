@@ -102,6 +102,91 @@ def raster_scene(name: str):
     return cloud, cam
 
 
+def cull_stress_frame(seed: int = 4, device="cpu"):
+    """Projected inputs of a RASTER_W×RASTER_H frame that stresses the tile
+    kernels' warp cull: thin Gaussians at ±45° (a few at other angles),
+    centres between tiles and off the image, opacities at, just above and
+    just below 1/255 and at 0.99 or more, and one Gaussian larger than a
+    tile. (means2d, depths, conics, colors, opacities, radii) as tensors on
+    `device`: float32, and per-axis 3σ radii (P, 2) int32 for the binning."""
+    import torch
+    W, H = RASTER_W, RASTER_H
+    rng = np.random.default_rng(seed)
+    n = 240
+    major = rng.uniform(3.0, 14.0, n)
+    minor = rng.uniform(0.3, 1.2, n)
+    theta = rng.choice([np.pi / 4, -np.pi / 4], n)
+    theta[:40] = rng.uniform(0.0, np.pi, 40)
+    co, si = np.cos(theta), np.sin(theta)
+    cxx = co * co * major ** 2 + si * si * minor ** 2
+    cyy = si * si * major ** 2 + co * co * minor ** 2
+    cxy = co * si * (major ** 2 - minor ** 2)
+    cxx[0] = cyy[0] = 30.0 ** 2       # larger than a tile
+    cxy[0] = 0.0
+    det = cxx * cyy - cxy ** 2
+    conics = np.stack([cyy / det, -cxy / det, cxx / det], 1)
+    means = np.stack([rng.uniform(-20.0, W + 20.0, n),
+                      rng.uniform(-20.0, H + 20.0, n)], 1)
+    means[0] = (W / 2, H / 2)
+    means[1:30] = np.round(means[1:30] / 16.0) * 16.0 - 0.5  # tile corners
+    eps = np.float32(1.0) / np.float32(255.0)
+    op = rng.uniform(0.05, 0.9, n)
+    op[30:60] = eps * (1.0 + rng.uniform(-2e-3, 2e-3, 30))
+    op[60:64] = eps
+    op[64:84] = rng.uniform(0.99, 1.0, 20)
+    radii = np.ceil(3.0 * np.sqrt(np.stack([cxx, cyy], 1)))
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)
+    return (f32(means), f32(rng.uniform(1.0, 8.0, n)), f32(conics),
+            f32(rng.uniform(0.0, 1.0, (n, 3))), f32(op),
+            torch.as_tensor(radii.astype(np.int32), device=device))
+
+
+def log_t_f64(means2d, conics, opacities, ids, starts, counts, n_contrib,
+              width: int, height: int, tile_x: int, tile_y: int,
+              f32_terms: bool):
+    """Each pixel's log T_final as a float64 sum, in order, of log1p(-α)
+    over the pairs of its tile before its n_contrib (an (H, W) int tensor),
+    skipped pairs adding 0. With `f32_terms` α and the skip test are the
+    plain version's float32 expression (`ops.blending.alpha_from_power`) and
+    only log1p and the sum are float64: what a float32 sum of those terms
+    should give, whatever its order. Without it, α and the skip test are
+    float64 too, from the same float32 inputs. A loop over tiles: for the
+    small test frames. Returns a float64 (H, W) tensor."""
+    import torch
+    from .ops.blending import ALPHA_EPS, ALPHA_MAX, alpha_from_power
+    dev = means2d.device
+    dt = torch.float32 if f32_terms else torch.float64
+    gx = (width + tile_x - 1) // tile_x
+    out = torch.zeros((height, width), dtype=torch.float64, device=dev)
+    for t in range(counts.shape[0]):
+        s, c = int(starts[t]), int(counts[t])
+        x0, y0 = (t % gx) * tile_x, (t // gx) * tile_y
+        x1, y1 = min(x0 + tile_x, width), min(y0 + tile_y, height)
+        if c == 0 or x0 >= x1 or y0 >= y1:
+            continue
+        g = ids[s:s + c].to(torch.int64)
+        y, x = torch.meshgrid(torch.arange(y0, y1, device=dev),
+                              torch.arange(x0, x1, device=dev),
+                              indexing="ij")
+        dx = x.to(dt)[..., None] - means2d[g, 0].to(dt)
+        dy = y.to(dt)[..., None] - means2d[g, 1].to(dt)
+        a, b, cc = conics[g].to(dt).unbind(1)
+        power = -0.5 * (a * dx * dx + cc * dy * dy) - b * dx * dy
+        op = opacities[g].to(dt)
+        if f32_terms:
+            alpha = alpha_from_power(power, op).double()
+        else:
+            alpha = torch.clamp(op * torch.exp(torch.clamp(power, max=0.0)),
+                                max=ALPHA_MAX)
+            alpha = torch.where((power > 0.0) | (alpha < ALPHA_EPS),
+                                torch.zeros_like(alpha), alpha)
+        before = (torch.arange(c, device=dev)
+                  < n_contrib[y0:y1, x0:x1, None].to(dev))
+        out[y0:y1, x0:x1] = torch.where(before, torch.log1p(-alpha),
+                                        torch.zeros_like(alpha)).sum(-1)
+    return out
+
+
 def make_sh3_cloud(seed: int, n: int, extent: float = 2.5,
                    scale_range=(0.004, 0.02)):
     """`make_gaussian_cloud` at SH degree 3 with the 15 higher coefficients

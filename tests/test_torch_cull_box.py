@@ -1,4 +1,4 @@
-"""Property test of the backward kernel's per-warp cull box
+"""Property test of the tile kernels' per-warp cull box
 (`ops/raster.py::cull_box_torch`, the plain version of
 `csrc/raster_common.cuh::cull_box`): over random means, conics and
 opacities, no pixel of a culled warp rectangle passes the α ≥ 1/255 test.
@@ -70,8 +70,9 @@ def _gaussians(draw):
 def test_cull_box_never_drops_a_passing_pixel(gauss):
     """No pixel of a warp rectangle that the cull box drops passes the
     kernels' α ≥ 1/255 test in f32 (`alpha_from_power`), nor in float64:
-    the backward kernel's warp rectangles of 16×16 and 32×16 tiles
-    (`raster.warp_rects`), tiling windows at the box's edges, corners and
+    the warp rectangles of 16×16 and 32×16 tiles at 2 and 4 pixels per
+    thread (`raster.warp_rects`: the backward and the training forward, the
+    inference forward), tiling windows at the box's edges, corners and
     centre."""
     mean, conic, op = gauss
     box = raster.cull_box_torch(torch.as_tensor(mean)[None],
@@ -99,8 +100,10 @@ def test_cull_box_never_drops_a_passing_pixel(gauss):
             passes.append(alpha_from_power(
                 power, torch.as_tensor(op, dtype=dt)) > 0)
         seen = passes[0] | passes[1]                                 # (wy, wx)
-        for tile in ((16, 16), (32, 16)):
-            rx0, rx1, ry0, ry1 = raster.warp_rects(*tile)[0].tolist()
+        for tile, pixels in ((t, p) for t in ((16, 16), (32, 16))
+                             for p in (raster.BWD_PIXELS,
+                                       raster.fwd_pixels(False))):
+            rx0, rx1, ry0, ry1 = raster.warp_rects(*tile, pixels)[0].tolist()
             rw, rh = rx1 - rx0 + 1, ry1 - ry0 + 1
             x0 = torch.arange(ox, ox + wx, rw, dtype=torch.float64)
             y0 = torch.arange(oy, oy + wy, rh, dtype=torch.float64)

@@ -179,23 +179,97 @@ def test_cuda_kernel_matches_plain(tile_x, tile_y, n_contrib):
         assert torch.equal(out.n_contrib, ref.n_contrib)
 
 
+@pytest.mark.parametrize("tile_x,tile_y", [(16, 16), (32, 16), (16, 8)])
+@pytest.mark.parametrize("n_contrib", [False, True])
+def test_forward_warp_layout_covers_each_pixel_once(tile_x, tile_y,
+                                                     n_contrib):
+    """The forward kernel's warp layout (`raster.fwd_pixels` rows per
+    thread: 2 training, 4 inference) gives every pixel of a tile to exactly
+    one warp, and each warp's rectangle (`raster.warp_rects`, the
+    rectangle its cull tests) holds exactly that warp's pixels."""
+    pixels = raster.fwd_pixels(n_contrib)
+    wp = raster.warp_pixels(tile_x, tile_y, pixels)
+    assert wp.shape == (tile_x * tile_y // (32 * pixels), 32 * pixels)
+    assert torch.equal(wp.flatten().sort().values,
+                       torch.arange(tile_x * tile_y))
+    for w, (x0, x1, y0, y1) in enumerate(
+            raster.warp_rects(tile_x, tile_y, pixels).tolist()):
+        x, y = torch.meshgrid(torch.arange(x0, x1 + 1),
+                              torch.arange(y0, y1 + 1), indexing="xy")
+        assert torch.equal((y * tile_x + x).flatten().sort().values,
+                           wp[w].sort().values)
+
+
+def _stress_args(tile_x, tile_y, n_contrib, device):
+    m2, dep, con, col, op, radii = testing.cull_stress_frame(device=device)
+    ba = bin_gaussians(m2, dep, radii, W, H, tile_x, tile_y)
+    return (m2, dep, con, col, op, ba.ids, ba.tile_starts, ba.tile_counts,
+            torch.as_tensor(BG, device=device), W, H, tile_x, tile_y,
+            n_contrib)
+
+
+@pytest.mark.parametrize("tile_x,tile_y", [(16, 16), (32, 16), (16, 8)])
+def test_plain_log_t_is_its_terms_float64_sum(tile_x, tile_y):
+    """On the cull-stress frame the plain version's log T_final is within
+    2e-6 of the float64 sum of its own float32 terms: the order of its
+    chunked sums costs less than that, so what separates it from the
+    float64 sum of float64 terms is the rounding of each term."""
+    args = _stress_args(tile_x, tile_y, True, "cpu")
+    ref = raster.rasterize_forward_torch(*args)
+    m2, _, con, _, op, ids, starts, counts = args[:8]
+    exact = testing.log_t_f64(m2, con, op, ids, starts, counts,
+                              ref.n_contrib, W, H, tile_x, tile_y, True)
+    torch.testing.assert_close(ref.log_t.double(), exact, atol=2e-6,
+                               rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile_x,tile_y", [(16, 16), (32, 16), (16, 8)])
+@pytest.mark.parametrize("n_contrib", [False, True])
+def test_cuda_kernel_on_cull_stress_frame(tile_x, tile_y, n_contrib):
+    """The kernel's per-warp cull on the frame built to stress it (thin
+    diagonal Gaussians, centres on tile corners, opacities at 1/255), at
+    both tile shapes of the port and at 16×8 (a block of one warp in the
+    inference instantiation, two in the training one): every
+    image within 1e-5 of the plain version and n_contrib equal, so no
+    culled (warp, pair) held a pixel that blends or stops; log T_final
+    within 1e-5 too (the kernel rounds the quadratic form of the thin
+    Gaussians term by term, as the plain version does)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    args = _stress_args(tile_x, tile_y, n_contrib, "cuda")
+    out = raster.rasterize_forward(*args)
+    ref = raster.rasterize_forward_torch(*args)
+    torch.cuda.synchronize()
+    for name in ("color", "invdepth", "alpha"):
+        torch.testing.assert_close(getattr(out, name), getattr(ref, name),
+                                   atol=1e-5, rtol=0)
+    torch.testing.assert_close(out.depth, ref.depth, atol=1e-5 * float(
+        ref.depth.abs().max()), rtol=0)
+    if n_contrib:
+        assert torch.equal(out.n_contrib, ref.n_contrib)
+        torch.testing.assert_close(out.log_t, ref.log_t, atol=1e-5, rtol=0)
+
+
 def test_library_hash_covers_the_headers_a_source_includes(tmp_path,
                                                            monkeypatch):
     """A kernel library's name changes with an edit to a `csrc/` header its
     source includes (so a stale library is never loaded), and not with an
-    edit to a header it does not include."""
+    edit to a header it does not include: both tile kernels include
+    `raster_common.cuh`, the probes include no header."""
     from sparse_view_3dgs_pack_tpu_torch.ops import _build
     for p in _build.CSRC_DIR.iterdir():
         (tmp_path / p.name).write_bytes(p.read_bytes())
     monkeypatch.setattr(_build, "CSRC_DIR", tmp_path)
-    assert [p.name for p in _build._headers("raster_bwd")] == \
-        ["raster_common.cuh"]
-    assert _build._headers("raster_fwd") == []
+    for name in ("raster_fwd", "raster_bwd"):
+        assert [p.name for p in _build._headers(name)] == \
+            ["raster_common.cuh"]
+    assert _build._headers("probes") == []
     names = ("raster_fwd", "raster_bwd", "probes")
     before = {n: _build.library_path(n) for n in names}
     with open(tmp_path / "raster_common.cuh", "a") as f:
         f.write("\n// edited\n")
     after = {n: _build.library_path(n) for n in names}
     assert after["raster_bwd"] != before["raster_bwd"]
-    assert after["raster_fwd"] == before["raster_fwd"]
+    assert after["raster_fwd"] != before["raster_fwd"]
     assert after["probes"] == before["probes"]

@@ -233,49 +233,12 @@ def test_backward_wrappers_cpu_and_validation():
             ba.ids, ba.tile_starts, ba.tile_counts, torch.as_tensor(BG))
 
 
-def _cull_stress(seed=4):
-    """Projected inputs of a 64×48 frame that stresses the backward
-    kernel's warp cull: thin Gaussians at ±45° (a few at other angles),
-    centres between tiles and off the image, opacities at, just above and
-    just below 1/255 and at 0.99 or more, and one Gaussian larger than a
-    tile. (means2d, depths, conics, colors, opacities, radii): float32, and
-    per-axis 3σ radii (P, 2) int32 for the binning."""
-    rng = np.random.default_rng(seed)
-    n = 240
-    major = rng.uniform(3.0, 14.0, n)
-    minor = rng.uniform(0.3, 1.2, n)
-    theta = rng.choice([np.pi / 4, -np.pi / 4], n)
-    theta[:40] = rng.uniform(0.0, np.pi, 40)
-    co, si = np.cos(theta), np.sin(theta)
-    cxx = co * co * major ** 2 + si * si * minor ** 2
-    cyy = si * si * major ** 2 + co * co * minor ** 2
-    cxy = co * si * (major ** 2 - minor ** 2)
-    cxx[0] = cyy[0] = 30.0 ** 2       # larger than a tile
-    cxy[0] = 0.0
-    det = cxx * cyy - cxy ** 2
-    conics = np.stack([cyy / det, -cxy / det, cxx / det], 1)
-    means = np.stack([rng.uniform(-20.0, W + 20.0, n),
-                      rng.uniform(-20.0, H + 20.0, n)], 1)
-    means[0] = (W / 2, H / 2)
-    means[1:30] = np.round(means[1:30] / 16.0) * 16.0 - 0.5  # tile corners
-    eps = np.float32(1.0) / np.float32(255.0)
-    op = rng.uniform(0.05, 0.9, n)
-    op[30:60] = eps * (1.0 + rng.uniform(-2e-3, 2e-3, 30))
-    op[60:64] = eps
-    op[64:84] = rng.uniform(0.99, 1.0, 20)
-    radii = np.ceil(3.0 * np.sqrt(np.stack([cxx, cyy], 1)))
-    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32))
-    return (f32(means), f32(rng.uniform(1.0, 8.0, n)), f32(conics),
-            f32(rng.uniform(0.0, 1.0, (n, 3))), f32(op),
-            torch.as_tensor(radii.astype(np.int32)))
-
-
-def _culled_visible(means2d, conics, opacities, ba, tile_x, tile_y):
+def _culled_visible(means2d, conics, opacities, ba, tile_x, tile_y, pixels):
     """(warp, pair) counts over every tile of the frame: those the cull
     box drops, and those it drops although a pixel of the warp passes the
     α ≥ 1/255 test of `alpha_from_power` in f32."""
     boxes = raster.cull_box_torch(means2d, conics, opacities)
-    rects = raster.warp_rects(tile_x, tile_y)
+    rects = raster.warp_rects(tile_x, tile_y, pixels)
     gx, _ = tile_grid(W, H, tile_x, tile_y)
     lin = torch.arange(tile_x * tile_y)
     culled = dropped = 0
@@ -291,7 +254,7 @@ def _culled_visible(means2d, conics, opacities, ba, tile_x, tile_y):
         a, b, cc = conics[g].unbind(1)
         power = -0.5 * (a * dx * dx + cc * dy * dy) - b * dx * dy
         seen = alpha_from_power(power, opacities[g]) > 0          # (pix, k)
-        seen = seen[raster.warp_pixels(tile_x, tile_y)].any(1)    # (warps, k)
+        seen = seen[raster.warp_pixels(tile_x, tile_y, pixels)].any(1)
         out = raster.rect_outside(
             boxes[g][None], (rects + torch.tensor([ox, ox, oy, oy]))[:, None])
         culled += int(out.sum())
@@ -300,14 +263,23 @@ def _culled_visible(means2d, conics, opacities, ba, tile_x, tile_y):
 
 
 @pytest.mark.parametrize("tile_x,tile_y", [(16, 16), (32, 16)])
-def test_cull_stress_no_visible_pair_culled(tile_x, tile_y):
+@pytest.mark.parametrize("pixels", [raster.BWD_PIXELS,
+                                    raster.fwd_pixels(False)])
+def test_cull_stress_no_visible_pair_culled(tile_x, tile_y, pixels):
     """On the cull-stress frame the plain cull box drops many (warp, pair)
-    and never one where a pixel of the warp passes the α test."""
-    m2, dep, con, _, op, radii = _cull_stress()
+    and never one where a pixel of the warp passes the α test, for warps
+    of 2 pixels per thread (the backward and the training forward) and of
+    4 (the inference forward)."""
+    m2, dep, con, _, op, radii = testing.cull_stress_frame()
     ba = bin_gaussians(m2, dep, radii, W, H, tile_x, tile_y)
-    culled, dropped = _culled_visible(m2, con, op, ba, tile_x, tile_y)
+    culled, dropped = _culled_visible(m2, con, op, ba, tile_x, tile_y,
+                                      pixels)
     assert dropped == 0
-    assert culled > ba.total_pairs      # several warps of a pair, typically
+    # several warps of a pair, typically; a fifth of the (warp, pair) where
+    # a tile has only two warps (16×16 at 4 pixels per thread)
+    warps = tile_x * tile_y // (32 * pixels)
+    assert culled > (ba.total_pairs if warps >= 4
+                     else ba.total_pairs * warps / 5)
 
 
 @pytest.mark.parametrize("tile_x,tile_y", [(16, 16), (32, 16)])
@@ -315,7 +287,7 @@ def test_cull_stress_backward_matches_autograd(tile_x, tile_y):
     """The plain backward on the cull-stress frame against torch autograd
     through the plain forward, at the bar of
     `test_backward_matches_autograd_of_plain_forward`."""
-    m2, dep, con, col, op, radii = _cull_stress()
+    m2, dep, con, col, op, radii = testing.cull_stress_frame()
     ba = bin_gaussians(m2, dep, radii, W, H, tile_x, tile_y)
     gw = [torch.as_tensor(g) for g in _cotangents(11)]
     bg = torch.as_tensor(BG)
@@ -344,7 +316,8 @@ def _cuda_case(scene, tile_x, tile_y):
     """Backward inputs on the card: a raster test scene by name, or the
     cull-stress frame ("cull_stress"); returns (arguments, binning)."""
     if scene == "cull_stress":
-        m2, dep, con, col, op, radii = (t.cuda() for t in _cull_stress())
+        m2, dep, con, col, op, radii = testing.cull_stress_frame(
+            device="cuda")
     else:
         _, tp = _scene(scene)
         m2, dep, con, col, op, radii = (
