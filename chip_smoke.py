@@ -6,14 +6,16 @@ card.
 
 Phases, one line each or more, any failure exits non-zero:
   1 device     the card's name and power limit (nvidia-smi)
-  2 build      nvcc-compiles csrc/raster_fwd.cu, csrc/raster_bwd.cu and
-               csrc/probes.cu for sm_90a, all at once, into build/kernels/;
-               ptxas registers and spills
+  2 build      nvcc-compiles csrc/raster_fwd.cu, csrc/raster_bwd.cu,
+               csrc/probes.cu and csrc/knn.cu for sm_90a, all at once, into
+               build/kernels/; ptxas registers and spills
   3 kernel     the forward kernel against its plain PyTorch version at 64x48
                on the rasterizer test scenes, both instantiations (n_contrib
                and log T_final too), both tile shapes; and on the frame
-               built to stress the warp cull (16x8 too), with both
-               versions' log T_final against float64 sums
+               built to stress the warp cull (16x8 too); there and on
+               the sticky scene both versions' log T_final against float64
+               sums and against the plain version's float32 terms summed
+               in pair order
   4 bwd        the backward kernel (K3) and the per-Gaussian segment sum
                against their plain versions on the same scenes at 16x16 and
                32x16, per pair and per Gaussian; then one 800x800 training
@@ -42,6 +44,22 @@ Phases, one line each or more, any failure exits non-zero:
                again with the debug snapshot armed (--debug_from 0) and a
                checkpoint halfway, resumed from it (--start_checkpoint) to
                the same end
+  fsgs         `python -m sparse_view_3dgs_pack_tpu_torch.train --method
+               fsgs` (run in this process, so that its launches are
+               counted) on the few-shot fixture at full width (400x400, 24
+               cameras, 3 training views, 20k ground-truth Gaussians, a
+               30k dense init with 30 stray points, disparity priors),
+               3000 iterations, then the render and metrics CLIs: test
+               PSNR at least 5 dB above the starting model's, proximity
+               appends, warped pseudo steps past the coverage test, the
+               LPIPS keys in results.json, every kernel of the path
+               launched; K3 and the segment sum against their plain
+               versions on one FSGS training render with the depth prior's
+               cotangent, with times and bounds
+  knn          knn3's kernel against its plain version, bitwise, on the
+               fixture's fused.ply, 300k uniform points and 100k points
+               with far outliers and exact duplicates; its times beside
+               the plain version's and chunked torch.cdist + topk's
   probes       `probes.prims` and `probes.fwd_bisect` through their main();
                each of the six probe kernels against its plain version;
                D1 (both instantiations), D2 and the forward kernel against
@@ -93,8 +111,10 @@ KERNELS = {   # name → (source, the TPU kernel or JAX reduction it replaces)
     "probe_pair_alpha": (f"{CSRC}/probes.cu", "scripts/tpu_prims.py:93"),
     "probe_tile_alpha": (f"{CSRC}/probes.cu", "scripts/tpu_dbg.py:54"),
     "probe_tile_blend": (f"{CSRC}/probes.cu", "scripts/tpu_dbg.py:141"),
+    "knn3": (f"{CSRC}/knn.cu", "sparse_view_3dgs_pack_tpu/ops/knn.py:106"),
 }
 TRAIN_KERNELS = ("raster_fwd", "raster_bwd", "segment_sum")
+FSGS_KERNELS = TRAIN_KERNELS + ("knn3",)
 PROBE_KERNELS = tuple(k for k in KERNELS if k.startswith("probe_"))
 SMALL_TOL = 1e-5     # phases 3-4 at 64x48: abs (depth, gradients: relative
 FULL_TOL = 1e-4      # to the largest); 1080p / 800p: sums in another order
@@ -108,6 +128,17 @@ TRAIN_W = TRAIN_H = 800
 TRAIN_N = 100_000
 WARMUP_STEPS, TIMED_STEPS = 3, 20
 CLI_W, CLI_ITERS, CLI_INIT_POINTS = 400, 600, 1000
+# the fsgs phase: `scripts/fsgs_fewshot_bench.py`'s fixture at full width
+# (400x400, 24 cameras, 3 training views, 20k ground-truth Gaussians, a 30k
+# dense init) with 30 stray points in the init; a shortened schedule in
+# which every FSGS mechanism fires
+FSGS_W, FSGS_GAUSS, FSGS_DENSE, FSGS_OUTLIERS = 400, 20_000, 30_000, 30
+FSGS_ITERS = 3000
+FSGS_FLAGS = ("--start_sample_pseudo", "500", "--end_sample_pseudo", "2800",
+              "--sample_pseudo_interval", "10", "--proximity_until_iter",
+              "1500", "--densify_grad_threshold", str(0.0002 * 800 / FSGS_W),
+              "--position_lr_max_steps", str(FSGS_ITERS))
+KNN_UNIFORM, KNN_STRESS = 300_000, 100_000
 # H100 SXM published peaks: float32 outside the
 # tensor cores, and HBM3 bandwidth
 PEAK_F32_OPS = 67e12
@@ -209,8 +240,9 @@ def max_errs(out, ref) -> dict:
 
 
 def _counters():
-    from sparse_view_3dgs_pack_tpu_torch.ops import probes, raster
-    return {"raster_fwd": raster.rasterize_forward,
+    from sparse_view_3dgs_pack_tpu_torch.ops import knn, probes, raster
+    return {"knn3": knn.knn3,
+            "raster_fwd": raster.rasterize_forward,
             "raster_bwd": raster.rasterize_backward,
             "segment_sum": raster.pairs_to_gaussians,
             "probe_tile_coords": probes.tile_coords,
@@ -275,7 +307,7 @@ def phase_build() -> None:
     registers and spill bytes of each kernel."""
     from sparse_view_3dgs_pack_tpu_torch.ops import _build
     t0 = time.perf_counter()
-    names = ("raster_fwd", "raster_bwd", "probes")
+    names = ("raster_fwd", "raster_bwd", "probes", "knn")
     with ThreadPoolExecutor(len(names)) as pool:
         built = dict(zip(names, pool.map(_build.build, names)))
     secs = time.perf_counter() - t0
@@ -353,11 +385,12 @@ def phase_kernels(device) -> float:
                 ref = rasterize_forward_torch(*args, W, H, tx, ty, n_contrib)
                 torch.cuda.synchronize()
                 errs = max_errs(out, ref)
-                if n_contrib and stress:
+                if n_contrib and name in ("cull_stress", "sticky"):
                     exact = [testing.log_t_f64(
                         proj.means2d, proj.conics, proj.opacities, ba.ids,
                         ba.tile_starts, ba.tile_counts, out.n_contrib, W, H,
-                        tx, ty, f32) for f32 in (False, True)]
+                        tx, ty, f32, seq) for f32, seq in
+                        ((False, False), (True, False), (True, True))]
                     e = lambda a, b: float((a.double() - b).abs().max())
                     log("kernel", f"{name} {tx}x{ty} log T_final against "
                                   f"its float64 sum: kernel "
@@ -366,7 +399,11 @@ def phase_kernels(device) -> float:
                                   f"the float64 sum of the plain version's "
                                   f"float32 terms: kernel "
                                   f"{e(out.log_t, exact[1]):.3g}, plain "
-                                  f"{e(ref.log_t, exact[1]):.3g}")
+                                  f"{e(ref.log_t, exact[1]):.3g}; against "
+                                  f"those terms summed in float32 in pair "
+                                  f"order: kernel "
+                                  f"{e(out.log_t, exact[2]):.3g}, plain "
+                                  f"{e(ref.log_t, exact[2]):.3g}")
                 msg = " ".join(f"{k}={v:.3g}" for k, v in errs.items())
                 if n_contrib:
                     diff = int((out.n_contrib != ref.n_contrib).sum())
@@ -395,7 +432,7 @@ def _sort_order(ids, P: int):
     return slots, offsets
 
 
-def _bwd_case(args, ba, tol: float, label: str):
+def _bwd_case(args, ba, tol: float, label: str, phase: str = "bwd"):
     """K3 and the segment sum against their plain versions on one set of
     backward inputs (`rasterize_backward` argument tuple, binning `ba`):
     per-pair and per-Gaussian errors relative to the largest plain value,
@@ -420,7 +457,7 @@ def _bwd_case(args, ba, tol: float, label: str):
                              f"order differs from the stable sort's")
     pair_err = float((out - ref).abs().max() / ref.abs().max())
     g_err = float((per - per_ref).abs().max() / per_ref.abs().max())
-    log("bwd", f"{label} pairs={ids.shape[0]} per-pair err {pair_err:.3g}, "
+    log(phase, f"{label} pairs={ids.shape[0]} per-pair err {pair_err:.3g}, "
                f"per-Gaussian err {g_err:.3g} (relative to the largest); "
                f"two runs bitwise equal; segment sum in the binning's order "
                f"bitwise equal to the stable sort's")
@@ -662,7 +699,6 @@ def _segsum_bound(P, K, n_pairs):
 def phase_bwd_full(model, cams, device) -> dict:
     """The 800x800 training render of the training model, kernels against
     plain versions; also their times and bounds at that shape."""
-    from sparse_view_3dgs_pack_tpu_torch.ops import raster
     from sparse_view_3dgs_pack_tpu_torch.ops.binning import bin_gaussians
     from sparse_view_3dgs_pack_tpu_torch.renderer import (TRAIN_TILE_X,
                                                           TRAIN_TILE_Y)
@@ -672,6 +708,17 @@ def phase_bwd_full(model, cams, device) -> dict:
                        tx, ty)
     bg = torch.zeros(3, device=device)
     args, fwd = _bwd_args(proj, ba, bg, W, H, tx, ty, seed=1)
+    return _train_kernels(proj, ba, bg, args, fwd, W, H, "bwd", device)
+
+
+def _train_kernels(proj, ba, bg, args, fwd, W, H, phase: str,
+                   device) -> dict:
+    """The training forward (`fwd`, the kernel's) and K3 and the segment
+    sum on the backward inputs `args` against their plain versions at
+    16x16 tiles; their times, (warp, pair) work and bounds. Returns the
+    three kernels' entries of the kernels line."""
+    from sparse_view_3dgs_pack_tpu_torch.ops import raster
+    tx, ty = args[-2:]
     fargs = _raster_args(proj, ba, bg) + (W, H, tx, ty, True)
     ref = raster.rasterize_forward_torch(*fargs)
     torch.cuda.synchronize()
@@ -679,13 +726,14 @@ def phase_bwd_full(model, cams, device) -> dict:
     nc_diff = int((~same).sum())
     errs = max_errs(fwd, ref._replace(log_t=torch.where(same, ref.log_t,
                                                         fwd.log_t)))
-    log("bwd", f"{W}x{H} training forward, {ba.total_pairs} pairs: kernel vs "
-               f"plain " + " ".join(f"{k}={v:.3g}" for k, v in errs.items())
+    log(phase, f"{W}x{H} training forward, {ba.total_pairs} pairs: kernel "
+               f"vs plain "
+               + " ".join(f"{k}={v:.3g}" for k, v in errs.items())
         + f" (log_t where n_contrib agrees) n_contrib_diff={nc_diff} of "
           f"{W * H} pixels")
     if nc_diff > FLIP_FRACTION * W * H or not all(
             v <= FULL_TOL for v in errs.values()):
-        raise AssertionError(f"800p training forward: {errs}, n_contrib "
+        raise AssertionError(f"{W}x{H} training forward: {errs}, n_contrib "
                              f"differs at {nc_diff} pixels")
     if nc_diff:
         # which side stops where exact arithmetic would: float64 replay
@@ -693,12 +741,12 @@ def phase_bwd_full(model, cams, device) -> dict:
         n64 = torch.tensor(_stop_f64(proj, ba, flips, W, tx, ty),
                            device=device)
         at = (flips[:, 0], flips[:, 1])
-        log("bwd", f"at the {nc_diff} pixels where n_contrib differs, a "
+        log(phase, f"at the {nc_diff} pixels where n_contrib differs, a "
                    f"float64 replay stops with the kernel at "
                    f"{int((fwd.n_contrib[at] == n64).sum())}, with the plain "
                    f"version at {int((ref.n_contrib[at] == n64).sum())}")
     pair_err, g_err = _bwd_case(args, ba, FULL_TOL,
-                                f"{W}x{H} training render")
+                                f"{W}x{H} training render", phase)
 
     P, C, n_pairs = proj.means2d.shape[0], 3, ba.total_pairs
     num_tiles = ba.tile_counts.shape[0]
@@ -727,24 +775,24 @@ def phase_bwd_full(model, cams, device) -> dict:
     fb_skips = _fwd_bound(P, C, n_pairs, num_tiles, W, H, work, True, True)
     bb_skips = _bwd_bound(P, C, n_pairs, num_tiles, W, H, work, True)
     sb = _segsum_bound(P, K, n_pairs)
-    log("bwd", f"{W}x{H} work: {work.before_stop} (pair, pixel) evaluations "
+    log(phase, f"{W}x{H} work: {work.before_stop} (pair, pixel) evaluations "
                f"before the stops, {work.skipped} of them skipped "
                f"({100 * work.skipped / work.before_stop:.1f}%), "
                f"{work.stops} pixels stop early")
-    log("bwd", f"{W}x{H} K3 per (warp, pair): {work.warp_pairs} replayed "
+    log(phase, f"{W}x{H} K3 per (warp, pair): {work.warp_pairs} replayed "
                f"(below the warp's largest n_contrib), {work.warp_contrib} "
                f"with a contributing lane "
                f"({100 * work.warp_contrib / work.warp_pairs:.1f}%), "
                f"{work.warp_culled} outside the warp's cull box "
                f"({100 * work.warp_culled / work.warp_pairs:.1f}%), "
                f"{work.culled_contrib} culled with a contributing lane")
-    log("bwd", f"{W}x{H} {work.fwd_line()}")
+    log(phase, f"{W}x{H} {work.fwd_line()}")
     if work.culled_contrib or work.fwd_culled_live:
         raise AssertionError(f"the cull box drops {work.culled_contrib} "
                              f"(warp, pair) with a contributing lane (K3), "
                              f"{work.fwd_culled_live} with a live one "
                              f"(forward)")
-    log("bwd", f"{W}x{H} training shape: raster_fwd {t_fwd:.3f} ms (plain "
+    log(phase, f"{W}x{H} training shape: raster_fwd {t_fwd:.3f} ms (plain "
                f"{t_fwd_plain:.1f}, bound {fb[0]:.4f} by {fb[1]}; "
                f"{fb_skips[0]:.4f} with the skipped evaluations); "
                f"raster_bwd {t_bwd:.3f} ms through its wrapper, the pair "
@@ -1334,6 +1382,218 @@ def _probe_full(device) -> dict:
             bound_ms=b2[0], bound_by=b2[1], library_ms=None, shape=shape)}
 
 
+def _knn_case(pts, label: str) -> dict:
+    """knn3's kernel against its plain version on `pts` (N, 3) on the card:
+    indices and mean d² bitwise; the kernel's, the plain version's and
+    chunked `torch.cdist` + `topk`'s times; the bytes bound."""
+    from sparse_view_3dgs_pack_tpu_torch.ops import knn
+    n = pts.shape[0]
+    d, i = knn.knn3(pts)
+    rd, ri = knn.knn3_torch(pts)
+    torch.cuda.synchronize()
+    if not (torch.equal(i, ri) and torch.equal(d, rd)):
+        bad = int((i != ri).any(1).sum())
+        raise AssertionError(f"knn3 {label}: kernel and plain version differ "
+                             f"at {bad} points (indices), max |d2| diff "
+                             f"{float((d - rd).abs().max()):.3g}")
+    t_kernel = cuda_ms(lambda: knn.knn3(pts), 10)
+    t_plain = cuda_ms(lambda: knn.knn3_torch(pts), 1)
+    chunk = max(1, (1 << 27) // n)
+
+    def library():
+        for s0 in range(0, n, chunk):
+            torch.topk(torch.cdist(pts[s0:s0 + chunk], pts), 4,
+                       largest=False)
+
+    t_lib = cuda_ms(library, 1)
+    # each point read once (12 B), its mean and 3 indices written (16 B);
+    # the operations the result needs (three distances a point) are ~0
+    b = bound(n * 28, 0)
+    ties = int((d == 0).sum())
+    log("knn", f"{label}: {n} points, kernel vs plain bitwise equal "
+               f"(indices, mean d2; {ties} points with 3 neighbours at "
+               f"d2 = 0); kernel {t_kernel:.3f} ms, plain {t_plain:.2f} ms, "
+               f"chunked cdist + topk {t_lib:.2f} ms, bound {b[0]:.5f} ms "
+               f"by {b[1]}")
+    return dict(max_abs_err=0.0, ms=t_kernel, plain_ms=t_plain,
+                bound_ms=b[0], bound_by=b[1], library_ms=t_lib)
+
+
+def phase_knn(fused: str, device) -> dict:
+    """knn3 on the fsgs phase's 30k dense init, a 300k uniform cloud and
+    a 100k cloud of far outliers and exact duplicates. Returns the entry
+    at the dense init's size (what each densify event searches)."""
+    from sparse_view_3dgs_pack_tpu_torch import testing
+    from sparse_view_3dgs_pack_tpu_torch.data.ply import fetch_point_cloud
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)
+    entry = _knn_case(f32(fetch_point_cloud(fused).points),
+                      "3_views/dense/fused.ply")
+    rng = np.random.default_rng(5)
+    _knn_case(f32(rng.uniform(-2, 2, (KNN_UNIFORM, 3))), "uniform")
+    _knn_case(f32(testing.knn_stress_cloud(6, KNN_STRESS)),
+              "outliers and duplicates")
+    return entry
+
+
+def _fsgs_bwd_args(model, cam, gt, prior, device):
+    """Backward inputs of one FSGS training render of `model` from `cam`:
+    the cotangents of FSGS's loss (masked L1 + SSIM on the clamped colour,
+    the Pearson depth prior at the schedule's 0.05) with respect to the
+    forward kernel's outputs, so that the depth cotangent is not zero."""
+    from sparse_view_3dgs_pack_tpu_torch.losses.depth import fsgs_depth_loss
+    from sparse_view_3dgs_pack_tpu_torch.losses.photometric import \
+        l1_loss_mask
+    from sparse_view_3dgs_pack_tpu_torch.losses.ssim import ssim
+    from sparse_view_3dgs_pack_tpu_torch.ops.binning import bin_gaussians
+    from sparse_view_3dgs_pack_tpu_torch.ops.raster import rasterize_forward
+    from sparse_view_3dgs_pack_tpu_torch.renderer import (TRAIN_TILE_X,
+                                                          TRAIN_TILE_Y)
+    W, H, tx, ty = cam.width, cam.height, TRAIN_TILE_X, TRAIN_TILE_Y
+    proj = _project_model(model, cam)
+    ba = bin_gaussians(proj.means2d, proj.depths, proj.rect_radii, W, H,
+                       tx, ty)
+    bg = torch.zeros(3, device=device)
+    args = _raster_args(proj, ba, bg)
+    fwd = rasterize_forward(*args, W, H, tx, ty, True)
+    color = fwd.color.clone().requires_grad_(True)
+    depth = fwd.depth.clone().requires_grad_(True)
+    image = torch.clamp(color, 0.0, 1.0)
+    loss = (0.8 * l1_loss_mask(image, gt) + 0.2 * (1.0 - ssim(image, gt))
+            + 0.05 * fsgs_depth_loss(depth, prior))
+    loss.backward()
+    if not float(depth.grad.abs().max()) > 0:
+        raise AssertionError("the FSGS render's depth cotangent is zero")
+    zero = torch.zeros_like(fwd.invdepth)
+    return proj, ba, bg, args + (fwd.log_t, fwd.n_contrib, color.grad, zero,
+                                 depth.grad, zero, W, H, tx, ty), fwd
+
+
+def phase_fsgs(work: str, device) -> dict:
+    """FSGS through the train CLI on the few-shot fixture, then the render
+    and metrics CLIs; the gates; K3 on one FSGS training render; knn3.
+    Returns the fsgs path's kernel entries."""
+    import contextlib
+    import io
+    import runpy
+    from sparse_view_3dgs_pack_tpu_torch import testing
+    from sparse_view_3dgs_pack_tpu_torch.data import readers
+    from sparse_view_3dgs_pack_tpu_torch.data.camera_utils import \
+        camera_list_from_cam_infos
+    from sparse_view_3dgs_pack_tpu_torch.depth.estimator import \
+        PrecomputedDepth
+    from sparse_view_3dgs_pack_tpu_torch.models import gaussians as gm
+    from sparse_view_3dgs_pack_tpu_torch.train.loop import evaluate_cameras
+    t0 = time.perf_counter()
+    scene = testing.write_llff_colmap_scene(
+        os.path.join(work, "fsgs_scene"), size=FSGS_W, n_gauss=FSGS_GAUSS,
+        n_dense=FSGS_DENSE, n_outliers=FSGS_OUTLIERS, device=device)
+    fused = os.path.join(scene, "3_views", "dense", "fused.ply")
+    info = readers.read_colmap_scene(scene, eval=True, n_views=3,
+                                     point_cloud_type="dense")
+    ns = Namespace(resolution=-1, data_device="cuda")
+    test_cams = camera_list_from_cam_infos(info.test_cameras, 1.0, ns, False,
+                                           True)
+    train_cams = camera_list_from_cam_infos(info.train_cameras, 1.0, ns,
+                                            False, False)
+    start = gm.create_from_pcd(info.point_cloud.points,
+                               info.point_cloud.colors, n_images=3,
+                               sh_degree=3, device=device)
+    psnr0 = evaluate_cameras(start, test_cams, [0.0, 0.0, 0.0], 0)["psnr"]
+    del start
+    log("fsgs", f"fixture {FSGS_W}x{FSGS_W}: {len(train_cams)} training and "
+                f"{len(test_cams)} test views of a {FSGS_GAUSS}-Gaussian "
+                f"cloud, dense init {FSGS_DENSE} + {FSGS_OUTLIERS} stray "
+                f"points, in {time.perf_counter() - t0:.1f} s; test PSNR "
+                f"at iteration 0: {psnr0:.3f} dB")
+
+    out = os.path.join(work, "fsgs_out")
+    argv = ["-s", scene, "-m", out, "--method", "fsgs", "--eval",
+            "--n_views", "3", "--point_cloud_type", "dense",
+            "--depth_estimator", "precomputed", "--disable_viewer",
+            "--iterations", str(FSGS_ITERS), "--test_iterations",
+            str(FSGS_ITERS), *FSGS_FLAGS]
+    buf = io.StringIO()
+    saved = sys.argv
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        sys.argv = ["python -m sparse_view_3dgs_pack_tpu_torch.train", *argv]
+        with contextlib.redirect_stdout(buf):
+            runpy.run_module("sparse_view_3dgs_pack_tpu_torch.train",
+                             run_name="__main__")
+    finally:
+        sys.argv = saved
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    used = read_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    text = buf.getvalue()
+    for line in text.splitlines():
+        if "Evaluating" in line or "FSGS" in line:
+            log("fsgs", line.strip())
+    counts = {k: int(v) for k, v in re.findall(
+        r"(\w+)=(\d+)", [l for l in text.splitlines()
+                          if "FSGS counts:" in l][0])}
+    ips = float(re.search(r"\(([0-9.]+) it/s\)", text).group(1))
+    log("fsgs", f"python -m sparse_view_3dgs_pack_tpu_torch.train --method "
+                f"fsgs: {FSGS_ITERS} iterations in {secs:.1f} s with "
+                f"set-up ({ips:.2f} it/s in the loop), peak "
+                f"{counts['peak_gaussians']} Gaussians, peak device memory "
+                f"{peak_gib:.3f} GiB; launches "
+                + ", ".join(f"{k} {used[k]}" for k in FSGS_KERNELS))
+    for mod, extra in (("render", ["--skip_train"]), ("metrics", [])):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", f"sparse_view_3dgs_pack_tpu_torch.{mod}",
+             "-m", out, *extra], cwd=REPO, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise AssertionError(f"{mod} CLI failed (rc={proc.returncode}):"
+                                 f"\n{proc.stdout}\n{proc.stderr}")
+        log("fsgs", f"{mod} CLI ok in {time.perf_counter() - t0:.1f} s")
+    with open(os.path.join(out, "results.json")) as f:
+        res = json.load(f)[f"ours_{FSGS_ITERS}"]
+    lp = "LPIPS" if "LPIPS" in res else "LPIPS_proxy"
+    log("fsgs", f"test PSNR {psnr0:.3f} dB at iteration 0 -> "
+                f"{res['PSNR']:.3f} dB at {FSGS_ITERS} (SSIM "
+                f"{res['SSIM']:.4f}, {lp} {res.get(lp, float('nan')):.4f}, "
+                f"LPIPS_backend {res.get('LPIPS_backend')})")
+    fails = []
+    if not res["PSNR"] >= psnr0 + 5.0:
+        fails.append(f"test PSNR rose by {res['PSNR'] - psnr0:.3f} dB, "
+                     f"less than 5")
+    if not counts["proximity_appended"] > 0:
+        fails.append("proximity densification appended nothing")
+    if not counts["warped_applied"] > 0:
+        fails.append(f"no warped pseudo step had coverage above 0.05 "
+                     f"({counts['warped_steps']} ran)")
+    if lp not in res or "LPIPS_backend" not in res:
+        fails.append(f"results.json lacks the LPIPS keys: {sorted(res)}")
+    fails += [f"{k} was not launched on the fsgs path" for k in FSGS_KERNELS
+              if not used[k] > 0]
+    if fails:
+        raise AssertionError("fsgs: " + "; ".join(fails))
+
+    # K3 on one FSGS training render of the trained model, with the depth
+    # prior's cotangent
+    model = gm.load_ply(os.path.join(out, "point_cloud",
+                                     f"iteration_{FSGS_ITERS}",
+                                     "point_cloud.ply"), sh_degree=3,
+                        device=device)
+    cam = train_cams[0]
+    gt = torch.as_tensor(cam.image[..., :3], device=device)
+    prior = torch.as_tensor(PrecomputedDepth(
+        os.path.join(scene, "depth_maps")).depth_for_camera(cam),
+        device=device)
+    proj, ba, bg, args, fwd = _fsgs_bwd_args(model, cam, gt, prior, device)
+    entries = _train_kernels(proj, ba, bg, args, fwd, cam.width, cam.height,
+                             "fsgs", device)
+    entries["knn3"] = phase_knn(fused, device)
+    for name, entry in entries.items():
+        entry["launches"] = used[name]
+    return entries
+
+
 def phase_probes(device, train_fwd: dict) -> dict:
     """The probe path: its two entry points as a user runs them, then each
     kernel against its plain version, timed. Returns the path's kernel
@@ -1544,6 +1804,7 @@ def main() -> None:
     del trained
     scene, ips = phase_train_cli(work, device)
     phase_resume_cli(work, scene, ips)
+    paths["fsgs"] = phase_fsgs(work, device)
     paths["probes"] = phase_probes(device, paths["train"]["raster_fwd"])
     ply, paths["render"] = phase_render(device, work)
     phase_cli(ply, work)
@@ -1555,7 +1816,8 @@ def main() -> None:
     print(card)
     # one entry per (kernel, path): launches, times and bound at that
     # path's own shape (train 800x800 16x16 tiles, render 1080p 32x16,
-    # probes: the shape each entry names)
+    # fsgs: a 400x400 training render of the trained model and knn3 on
+    # its 30k dense init, probes: the shape each entry names)
     print(json.dumps({"kernels": [
         {"name": name, "path": path, "route": "cuda",
          "source": KERNELS[name][0], "replaces": KERNELS[name][1], **entry}

@@ -4,8 +4,10 @@
 
 Output-compatible with the root `metrics.py` (reference
 `LGDWT-GS/metrics.py:36-103`): walks `<model>/test/ours_<iter>/{renders,gt}`
-and writes `results.json` and `per_view.json` with SSIM and PSNR. LPIPS is
-not ported yet and is left out of both files.
+and writes `results.json` and `per_view.json` with SSIM, PSNR and the VGG
+LPIPS (`metrics/lpips.py`): under `LPIPS`, or under `LPIPS_proxy` when no
+converted weights are installed, with `LPIPS_backend` naming which in
+`results.json` (root `metrics.py:69-85`).
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import torch
 from ..device import resolve_device
 from ..utils import image_io
 from .image_metrics import psnr_metric, ssim_metric
+from .lpips import lpips, lpips_backend, lpips_is_proxy
 
 
 def read_images(renders_dir: Path, gt_dir: Path):
@@ -40,8 +43,8 @@ def evaluate(model_paths, device) -> bool:
     """Scores every method under each model's `test/`. Returns False when a
     model could not be scored (its traceback is printed, the others go on)."""
     ok = True
-    print("LPIPS: not ported to the PyTorch package yet; results.json "
-          "carries SSIM and PSNR only")
+    # a proxy LPIPS (no converted weights) is never filed as the metric
+    lpips_key = "LPIPS_proxy" if lpips_is_proxy() else "LPIPS"
     for scene_dir in model_paths:
         try:
             print("Scene:", scene_dir)
@@ -52,18 +55,24 @@ def evaluate(model_paths, device) -> bool:
                 method_dir = test_dir / method
                 renders, gts, names = read_images(method_dir / "renders",
                                                   method_dir / "gt")
-                ssims, psnrs = [], []
+                ssims, psnrs, lpipss = [], [], []
                 for r, g in zip(renders, gts):
                     r_t = torch.as_tensor(r, device=device)
                     g_t = torch.as_tensor(g, device=device)
                     ssims.append(float(ssim_metric(r_t, g_t)))
                     psnrs.append(float(psnr_metric(r_t, g_t)))
+                    lpipss.append(float(lpips(r_t, g_t, net_type="vgg")))
                 print("  SSIM : {:>12.7f}".format(sum(ssims) / len(ssims)))
                 print("  PSNR : {:>12.7f}".format(sum(psnrs) / len(psnrs)))
+                print("  {}: {:>12.7f}".format(lpips_key,
+                                               sum(lpipss) / len(lpipss)))
                 full[method] = {"SSIM": sum(ssims) / len(ssims),
-                                "PSNR": sum(psnrs) / len(psnrs)}
+                                "PSNR": sum(psnrs) / len(psnrs),
+                                lpips_key: sum(lpipss) / len(lpipss),
+                                "LPIPS_backend": lpips_backend()}
                 per_view[method] = {"SSIM": dict(zip(names, ssims)),
-                                    "PSNR": dict(zip(names, psnrs))}
+                                    "PSNR": dict(zip(names, psnrs)),
+                                    lpips_key: dict(zip(names, lpipss))}
             with open(os.path.join(scene_dir, "results.json"), "w") as f:
                 json.dump(full, f, indent=True)
             with open(os.path.join(scene_dir, "per_view.json"), "w") as f:

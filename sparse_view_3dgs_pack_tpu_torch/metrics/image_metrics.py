@@ -1,6 +1,6 @@
 """Evaluation metrics (counterpart of
-`sparse_view_3dgs_pack_tpu/metrics/image_metrics.py`). LPIPS is not ported
-yet."""
+`sparse_view_3dgs_pack_tpu/metrics/image_metrics.py`); LPIPS is in
+`metrics/lpips.py`."""
 
 from __future__ import annotations
 

@@ -25,9 +25,10 @@ BUILD_DIR = PKG_DIR.parent / "build" / "kernels"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-# per source: the probes round every f32 operation on its own, as their
-# plain PyTorch versions do, so that the two can agree bit for bit
-SOURCE_FLAGS = {"probes": ("--fmad=false",)}
+# per source: the probes and the k-NN search round every f32 operation on
+# its own, as their plain PyTorch versions do, so that the two can agree
+# bit for bit
+SOURCE_FLAGS = {"probes": ("--fmad=false",), "knn": ("--fmad=false",)}
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}

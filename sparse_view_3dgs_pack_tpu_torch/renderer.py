@@ -70,9 +70,10 @@ def render_core(params: dict, exposure_mat: torch.Tensor, cam,
 
     inference=False is the differentiable training render: 16×16 tiles and
     `RasterizeFunction`; the returned `viewspace_points` keeps its gradient.
-    `confidence` and `opacity_override` serve FSGS and DNGaussian only."""
-    if confidence is not None:
-        _not_ported("the FSGS confidence gradient scale", 8)
+    `confidence` (N,) scales each Gaussian's gradients (FSGS, JAX
+    `renderer.py:71-89`): the straight-through p·c + detach(p·(1 − c)),
+    whose forward rounds as the JAX one does. `opacity_override` serves
+    DNGaussian, which is not ported."""
     if opacity_override is not None:
         _not_ported("DNGaussian's opacity_override", 9)
     xyz = params["xyz"]
@@ -80,14 +81,24 @@ def render_core(params: dict, exposure_mat: torch.Tensor, cam,
         viewmat, full_proj, cam_center = _camera_tensors(cam, xyz.device)
         scales = torch.exp(params["scaling"])
         opacity = torch.sigmoid(params["opacity"][:, 0])
+        quats = params["rotation"]
+
+        if confidence is not None:
+            def scale_grad(p):
+                c = confidence.reshape((-1,) + (1,) * (p.ndim - 1))
+                return p * c + (p * (1.0 - c)).detach()
+            xyz, scales, quats, opacity = (scale_grad(p) for p in
+                                           (xyz, scales, quats, opacity))
 
         sh = None
         if override_color is None:
             sh = torch.cat([params["features_dc"], params["features_rest"]],
                            1)
+            if confidence is not None:
+                sh = scale_grad(sh)
 
         proj = project_gaussians(
-            means3d=xyz, scales=scales, quats=params["rotation"],
+            means3d=xyz, scales=scales, quats=quats,
             opacities=opacity, viewmat=viewmat, full_proj=full_proj,
             cam_center=cam_center, tan_fovx=cam.tan_fovx,
             tan_fovy=cam.tan_fovy, width=width, height=height, sh=sh,

@@ -3,7 +3,9 @@
 `look_at_rt`, `make_orbit_cameras` and `make_gaussian_cloud` are copies of
 the generators in `sparse_view_3dgs_pack_tpu/testing.py` and give the same
 numbers from the same seed; this module adds the rasterizer test scenes of
-`tests/test_pallas.py` and a Blender-layout scene writer that needs no PIL.
+`tests/test_pallas.py`, a Blender-layout scene writer that needs no PIL,
+and the forward-facing COLMAP scene of `scripts/fsgs_fewshot_bench.py`
+(`write_llff_colmap_scene`), rendered by the port's own renderer.
 """
 
 from __future__ import annotations
@@ -143,15 +145,18 @@ def cull_stress_frame(seed: int = 4, device="cpu"):
 
 def log_t_f64(means2d, conics, opacities, ids, starts, counts, n_contrib,
               width: int, height: int, tile_x: int, tile_y: int,
-              f32_terms: bool):
+              f32_terms: bool, sequential: bool = False):
     """Each pixel's log T_final as a float64 sum, in order, of log1p(-α)
     over the pairs of its tile before its n_contrib (an (H, W) int tensor),
     skipped pairs adding 0. With `f32_terms` α and the skip test are the
     plain version's float32 expression (`ops.blending.alpha_from_power`) and
     only log1p and the sum are float64: what a float32 sum of those terms
     should give, whatever its order. Without it, α and the skip test are
-    float64 too, from the same float32 inputs. A loop over tiles: for the
-    small test frames. Returns a float64 (H, W) tensor."""
+    float64 too, from the same float32 inputs. With `sequential` (and
+    `f32_terms`) log1p is float32 too and the terms are summed in float32,
+    one pair after the other, as the kernel's running sum adds them. A
+    loop over tiles: for the small test frames. Returns a float64 (H, W)
+    tensor."""
     import torch
     from .ops.blending import ALPHA_EPS, ALPHA_MAX, alpha_from_power
     dev = means2d.device
@@ -174,7 +179,9 @@ def log_t_f64(means2d, conics, opacities, ids, starts, counts, n_contrib,
         power = -0.5 * (a * dx * dx + cc * dy * dy) - b * dx * dy
         op = opacities[g].to(dt)
         if f32_terms:
-            alpha = alpha_from_power(power, op).double()
+            alpha = alpha_from_power(power, op)
+            if not sequential:
+                alpha = alpha.double()
         else:
             alpha = torch.clamp(op * torch.exp(torch.clamp(power, max=0.0)),
                                 max=ALPHA_MAX)
@@ -182,9 +189,36 @@ def log_t_f64(means2d, conics, opacities, ids, starts, counts, n_contrib,
                                 torch.zeros_like(alpha), alpha)
         before = (torch.arange(c, device=dev)
                   < n_contrib[y0:y1, x0:x1, None].to(dev))
-        out[y0:y1, x0:x1] = torch.where(before, torch.log1p(-alpha),
-                                        torch.zeros_like(alpha)).sum(-1)
+        terms = torch.where(before, torch.log1p(-alpha),
+                            torch.zeros_like(alpha))
+        if sequential:
+            acc = torch.zeros(terms.shape[:2], dtype=dt, device=dev)
+            for k in range(c):
+                acc = acc + terms[..., k]
+            out[y0:y1, x0:x1] = acc.double()
+        else:
+            out[y0:y1, x0:x1] = terms.sum(-1)
     return out
+
+
+def knn_stress_cloud(seed: int, n: int) -> np.ndarray:
+    """(n, 3) float32 points that stress an exact 3-NN search: a dense
+    cluster in [-1, 1]³, 1% far outliers (10 to 10⁴ units out, most more
+    than 5 cloud extents from any other point), and exact duplicates (a
+    tenth of the points repeat others, some three or more times, so that
+    whole neighbour lists tie at distance 0 and go by index)."""
+    rng = np.random.default_rng(seed)
+    pts = rng.uniform(-1.0, 1.0, (n, 3))
+    n_out = max(n // 100, 4)
+    v = rng.normal(size=(n_out, 3))
+    v *= 10.0 ** rng.uniform(1.0, 4.0, (n_out, 1)) / np.linalg.norm(
+        v, axis=1, keepdims=True)
+    pts[:n_out] = v
+    n_dup = n // 10
+    dst = rng.choice(np.arange(n_out, n), n_dup, replace=False)
+    src = rng.choice(np.arange(n_out, n), n_dup // 4, replace=False)
+    pts[dst] = pts[src[rng.integers(0, len(src), n_dup)]]
+    return pts.astype(np.float32)
 
 
 def make_sh3_cloud(seed: int, n: int, extent: float = 2.5,
@@ -261,3 +295,109 @@ def _render_u8(model, R, T, fovx, width):
     cam = Camera(uid=0, colmap_id=0, R=R, T=T, fovx=fovx, fovy=fovx,
                  image_name="", width=width, height=width)
     return to_u8(render(model, cam, [0.0, 0.0, 0.0]).render)
+
+
+def write_llff_colmap_scene(root: str, seed: int = 3, size: int = 400,
+                            n_cams: int = 24, n_gauss: int = 20_000,
+                            n_dense: int = 30_000, n_sparse: int = 300,
+                            n_outliers: int = 0, device="cpu"):
+    """The few-shot fixture of `scripts/fsgs_fewshot_bench.py:46`
+    (`build_llff_colmap_scene`), with the port's generators and renderer
+    (on `device`, black background): a layered cloud of `n_gauss` Gaussians
+    (three depth slabs around z = 0, 1.2 and 2.6) seen by `n_cams`
+    forward-facing cameras on a jittered 6-wide grid at z ≈ -4 looking at
+    (0, 0, 0.8); COLMAP `sparse/0` binaries (one PINHOLE camera), `images/`,
+    `n_sparse` noisy SfM-like points, `3_views/dense/fused.ply` (`n_dense`
+    noisy surface samples with their true colours, the MVS-style init FSGS
+    reads) and `depth_maps/img_NNN.npy`: DPT-style relative disparity,
+    0–255, higher = closer, 0 where the render's alpha is at most 0.3 (the
+    convention of `fsgs_depth_loss` and of MiDaS). `n_outliers` > 0 adds
+    that many stray points to `fused.ply`, as MVS leaves them: uniform in
+    direction at 8 to 15 units from the cloud's centre, with random
+    colours (none in the JAX script's fixture; FSGS's proximity
+    densification and distance split exist for such points)."""
+    from .data import colmap
+    from .data.cameras import Camera
+    from .data.ply import store_point_cloud
+    from .models.gaussians import GaussianModel
+    from .render import to_u8
+    from .renderer import render
+    from .utils.graphics import fov2focal
+
+    rng = np.random.default_rng(seed)
+    W = H = size
+    cloud = make_gaussian_cloud(seed, n_gauss, extent=1.0,
+                                scale_range=(0.01, 0.05))
+    xyz = cloud["xyz"]
+    slab = rng.integers(0, 3, len(xyz))
+    xyz[:, 2] = xyz[:, 2] * np.array([0.5, 0.4, 0.8])[slab] \
+        + np.array([0.0, 1.2, 2.6])[slab]
+    cloud["xyz"] = xyz.astype(np.float32)
+
+    fovx = math.radians(55)
+    fovy = 2 * math.atan(math.tan(fovx / 2) * H / W)
+    cams = []
+    for i in range(n_cams):
+        gx = (i % 6 - 2.5) * 0.45 + rng.normal(0, 0.05)
+        gy = (i // 6 - 1.5) * 0.45 + rng.normal(0, 0.05)
+        eye = np.array([gx, gy, -4.0 + rng.normal(0, 0.08)])
+        R, T = look_at_rt(eye, (0, 0, 0.8), up=(0.0, -1.0, 0.0))
+        cams.append(Camera(uid=i, colmap_id=i + 1, R=R, T=T, fovx=fovx,
+                           fovy=fovy, image_name=f"img_{i:03d}.png",
+                           width=W, height=H))
+
+    f = cloud["features"]
+    model = GaussianModel(cloud["xyz"], f[:, :1], f[:, 1:], cloud["scales"],
+                          cloud["quats"], cloud["opacity"]).to(device)
+    sparse0 = os.path.join(root, "sparse/0")
+    imdir = os.path.join(root, "images")
+    ddir = os.path.join(root, "depth_maps")
+    for d in (sparse0, imdir, ddir):
+        os.makedirs(d, exist_ok=True)
+    colmap.write_cameras_binary(
+        {1: colmap.Camera(1, "PINHOLE", W, H,
+                          np.array([fov2focal(fovx, W), fov2focal(fovy, H),
+                                    W / 2, H / 2]))},
+        os.path.join(sparse0, "cameras.bin"))
+    images = {}
+    for i, cam in enumerate(cams):
+        res = render(model, cam, [0.0, 0.0, 0.0])
+        image_io.write_png(os.path.join(imdir, cam.image_name),
+                           to_u8(res.render))
+        depth = res.expected_depth.cpu().numpy()
+        cov = res.alpha.cpu().numpy() > 0.3
+        disp = np.where(cov, 1.0 / np.maximum(depth, 1e-3), 0.0)
+        dmax = disp.max() if cov.any() else 1.0
+        dmin = disp[cov].min() if cov.any() else 0.0
+        disp255 = np.where(cov, 255.0 * (disp - dmin)
+                           / max(dmax - dmin, 1e-6), 0.0)
+        np.save(os.path.join(ddir, f"img_{i:03d}.npy"),
+                disp255.astype(np.float32))
+        images[i + 1] = colmap.Image(i + 1, colmap.rotmat2qvec(cam.R.T),
+                                     cam.T, 1, cam.image_name,
+                                     np.zeros((0, 2)),
+                                     np.zeros((0,), np.int64))
+    colmap.write_images_binary(images, os.path.join(sparse0, "images.bin"))
+
+    true_cols = 1.0 / (1.0 + np.exp(-cloud["features"][:, 0, :]))
+    sel = rng.choice(n_gauss, n_sparse, replace=False)
+    pts = {int(i): colmap.Point3D(
+               int(i), cloud["xyz"][s] + rng.normal(0, 0.02, 3),
+               (true_cols[s] * 255).astype(np.uint8), 0.5,
+               np.array([1], np.int32), np.array([0], np.int32))
+           for i, s in enumerate(sel)}
+    colmap.write_points3D_binary(pts, os.path.join(sparse0, "points3D.bin"))
+    dsel = rng.choice(n_gauss, n_dense, replace=True)
+    dense = cloud["xyz"][dsel] + rng.normal(0, 0.01, (n_dense, 3))
+    cols = true_cols[dsel]
+    if n_outliers:
+        out = np.random.default_rng(seed + 1)
+        v = out.normal(size=(n_outliers, 3))
+        v *= out.uniform(8.0, 15.0, (n_outliers, 1)) / np.linalg.norm(
+            v, axis=1, keepdims=True)
+        dense = np.concatenate([dense, v + np.array([0.0, 0.0, 1.2])])
+        cols = np.concatenate([cols, out.random((n_outliers, 3))])
+    os.makedirs(os.path.join(root, "3_views/dense"), exist_ok=True)
+    store_point_cloud(os.path.join(root, "3_views/dense/fused.ply"), dense,
+                      cols)
+    return root

@@ -14,9 +14,14 @@ PyTorch versions. `--checkpoint_iterations N ...` writes
 resumes from the other's), `--start_checkpoint <file>` resumes from one,
 and `--debug_from N` (or `--debug`) arms the debug snapshot: from
 iteration N each step's loss is read on the host and a non-finite one
-writes `<model_path>/snapshot_fw.npz` and stops the run. Not ported yet,
-and raising NotImplementedError: `--method fsgs|dngaussian|mult-dwtgs`,
-`--data_parallel` other than 1, `--profile`.
+writes `<model_path>/snapshot_fw.npz` and stops the run. `--method fsgs`
+trains FSGS (`train/fsgs_loop.py`) with its flags: `--depth_estimator`
+(`precomputed` reads `<source>/depth_maps/`), `--proximity_until_iter`,
+`--dist_thres`, `--use_confidence`, and the readers' `--n_views` and
+`--point_cloud_type` (`dense` starts from `<n>_views/dense/fused.ply`).
+Not ported yet, and raising NotImplementedError: `--method
+dngaussian|mult-dwtgs`, `--data_parallel` other than 1, `--profile`; the
+checkpoint flags apply to the 3dgs / lgdwt loop only, as in the JAX CLI.
 """
 
 from __future__ import annotations
@@ -76,6 +81,10 @@ def main(argv=None):
     parser.add_argument("--near_range", type=float, default=0.0)
     parser.add_argument("--depth_estimator", type=str, default="auto",
                         choices=["auto", "precomputed", "midas", "none"])
+    parser.add_argument("--use_confidence", action="store_true",
+                        default=False,
+                        help="FSGS: scale each Gaussian's gradients by its "
+                             "confidence (all ones, as in the reference)")
     parser.add_argument("--profile", type=str, default="")
     parser.add_argument("--data_parallel", type=str, default="1")
     parser.add_argument("--device", default="cuda",

@@ -1,6 +1,7 @@
-"""Densification statistics, clone / split / prune, opacity reset.
+"""Densification statistics, clone / split / prune, FSGS proximity
+densification, opacity reset.
 
-Counterpart of `sparse_view_3dgs_pack_tpu/train/densify.py:39-162,215-223`
+Counterpart of `sparse_view_3dgs_pack_tpu/train/densify.py:39-223`
 (reference `gaussian_model.py:316-473`). The JAX state keeps a padded
 buffer with an alive prefix; the port holds only alive rows, so appended
 rows are concatenated and pruning keeps the surviving rows in order. The
@@ -50,12 +51,16 @@ def densify_and_prune(model: GaussianModel, adam: optim.AdamState,
                       max_grad: float, min_opacity: float, extent: float,
                       max_screen_size: int = 0, percent_dense: float = 0.01,
                       generator: Optional[torch.Generator] = None,
-                      noise: Optional[torch.Tensor] = None) -> DensifyResult:
+                      noise: Optional[torch.Tensor] = None,
+                      extra_split_mask: Optional[torch.Tensor] = None
+                      ) -> DensifyResult:
     """Clone small and split large Gaussians whose mean view-space gradient
     reaches `max_grad`, then prune: opacity < min_opacity, with
     `max_screen_size` also screen radius > max_screen_size or world size >
     0.1·extent, and every split original. Adam moments of appended rows are
-    zero; statistics are zeroed afterwards.
+    zero; statistics are zeroed afterwards. `extra_split_mask` (N,) bool
+    splits those Gaussians too, whatever their gradient (FSGS's distance
+    criterion, JAX `densify.py:82-85`); they are not also cloned.
 
     The two split samples are N(0, S) rotated into the world. `noise`
     (2, N, 3) standard-normal draws may be given (a test hands over the
@@ -71,6 +76,9 @@ def densify_and_prune(model: GaussianModel, adam: optim.AdamState,
     selected = grads >= max_grad
     clone_mask = selected & (max_scale <= percent_dense * extent)
     split_mask = selected & (max_scale > percent_dense * extent)
+    if extra_split_mask is not None:
+        split_mask = split_mask | extra_split_mask
+        clone_mask = clone_mask & ~split_mask
 
     # appended rows, Gaussian by Gaussian: one per clone, two per split
     n_new_per = clone_mask.to(torch.int64) + 2 * split_mask.to(torch.int64)
@@ -112,6 +120,32 @@ def densify_and_prune(model: GaussianModel, adam: optim.AdamState,
     optim.select_rows(adam, keep)
     return DensifyResult(int(clone_mask.sum()), int(split_mask.sum()),
                          int(prune.sum()))
+
+
+@torch.no_grad()
+def proximity_densify(model: GaussianModel, adam: optim.AdamState,
+                      nn_idx: torch.Tensor, mask: torch.Tensor) -> int:
+    """FSGS proximity densification (JAX `densify.py:166-213`, reference
+    `FSGS/scene/gaussian_model.py:405-421`): for each Gaussian in `mask`
+    (N,) bool, in index order, append the midpoints to its three
+    neighbours `nn_idx` (N, 3), each with the neighbour's scale and
+    opacity, an identity rotation and zero SH. Their Adam moments are zero
+    and the statistics are cleared. Returns the number of rows appended."""
+    params = model.params()
+    src = torch.nonzero(mask).squeeze(1).repeat_interleave(3)
+    nb = nn_idx[src, torch.arange(src.shape[0], device=src.device) % 3]
+    nb = nb.to(torch.int64)
+    n_new = src.shape[0]
+    rotation = torch.zeros((n_new, 4), device=src.device)
+    rotation[:, 0] = 1.0
+    rows = {"xyz": 0.5 * (params["xyz"][src] + params["xyz"][nb]),
+            "features_dc": torch.zeros_like(params["features_dc"][src]),
+            "features_rest": torch.zeros_like(params["features_rest"][src]),
+            "scaling": params["scaling"][nb], "rotation": rotation,
+            "opacity": params["opacity"][nb]}
+    model.set_rows({k: torch.cat([params[k], rows[k]]) for k in PARAM_NAMES})
+    optim.append_zero_rows(adam, n_new)
+    return n_new
 
 
 @torch.no_grad()

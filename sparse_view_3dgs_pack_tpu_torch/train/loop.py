@@ -21,6 +21,8 @@ import numpy as np
 import torch
 
 from ..losses.ssim import ssim as ssim_fn
+from ..metrics.lpips import lpips as lpips_fn
+from ..metrics.lpips import lpips_is_proxy
 from ..renderer import render
 from ..utils.general import get_expon_lr_func
 from ..utils.image import psnr as psnr_fn
@@ -34,11 +36,13 @@ from .step import CameraBank, StepConfig, train_step
 
 def evaluate_cameras(model, cameras, bg, active_sh,
                      antialiasing=False) -> dict:
-    """Mean PSNR / L1 / SSIM of inference renders over a camera list
-    (`loop.py:61-95`; LPIPS is not ported)."""
+    """Mean PSNR / L1 / SSIM of inference renders over a camera list, and
+    the VGG LPIPS when converted weights are installed: a proxy LPIPS never
+    enters the in-training report (`loop.py:61-95`)."""
     if not cameras:
         return {}
-    psnrs, l1s, ssims = [], [], []
+    real_lpips = not lpips_is_proxy("vgg")
+    psnrs, l1s, ssims, lpipss = [], [], [], []
     for cam in cameras:
         res = render(model, cam, bg, sh_degree_active=active_sh,
                      antialiasing=antialiasing)
@@ -47,15 +51,24 @@ def evaluate_cameras(model, cameras, bg, active_sh,
         psnrs.append(psnr_fn(res.render, gt))
         l1s.append((res.render - gt).abs().mean())
         ssims.append(ssim_fn(res.render, gt))
-    return {"psnr": float(torch.stack(psnrs).mean()),
-            "l1": float(torch.stack(l1s).mean()),
-            "ssim": float(torch.stack(ssims).mean()),
-            "n_views": len(cameras)}
+        if real_lpips:
+            lpipss.append(lpips_fn(res.render, gt))
+    stats = {"psnr": float(torch.stack(psnrs).mean()),
+             "l1": float(torch.stack(l1s).mean()),
+             "ssim": float(torch.stack(ssims).mean()),
+             "n_views": len(cameras)}
+    if real_lpips:
+        stats["lpips"] = float(torch.stack(lpipss).mean())
+    return stats
 
 
 def format_eval(stats: dict) -> str:
-    return (f"PSNR {stats.get('psnr', 0):.2f}"
+    """One line: `PSNR 21.13 SSIM 0.7421 [LPIPS 0.3120]`."""
+    line = (f"PSNR {stats.get('psnr', 0):.2f}"
             f" SSIM {stats.get('ssim', 0):.4f}")
+    if "lpips" in stats:
+        line += f" LPIPS {stats['lpips']:.4f}"
+    return line
 
 
 class Trainer:

@@ -1,8 +1,9 @@
 """Method recipes: a method name → its training procedure.
 
 Counterpart of `sparse_view_3dgs_pack_tpu/train/recipes.py`. Vanilla 3DGS
-is LGDWT with the DWT terms off; both run `simple_train`. The other
-methods are not ported yet and raise, naming their ROADMAP item.
+is LGDWT with the DWT terms off; both run `simple_train`. FSGS runs
+`fsgs_loop.train_fsgs`. DNGaussian and mult-dwtgs are not ported yet and
+raise, naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -12,7 +13,7 @@ import time
 from ..scene import Scene
 from .loop import simple_train
 
-NOT_PORTED = {"fsgs": 8, "dngaussian": 9, "mult-dwtgs": 10}
+NOT_PORTED = {"dngaussian": 9, "mult-dwtgs": 10}
 
 
 def _progress_printer(total):
@@ -37,14 +38,19 @@ def train_method(method: str, dataset, opt, pipe, args, device) -> None:
         raise NotImplementedError(
             f"--method {method} is not ported to the PyTorch package yet "
             f"(ROADMAP Queue 1 item {NOT_PORTED[method]})")
-    if method not in ("3dgs", "lgdwt"):
+    if method not in ("3dgs", "lgdwt", "fsgs"):
         raise ValueError(method)
     # arm the debug snapshot from --debug_from (`train/debug.py`)
     pipe.debug_from = getattr(args, "debug_from", -1)
-    scene = Scene(dataset, sh_degree=dataset.sh_degree, device=device)
     if not getattr(args, "disable_viewer", False):
         print("[viewer] the network viewer is not ported to the PyTorch "
               "package yet (ROADMAP Queue 1 item 11); training without it")
+    if method == "fsgs":
+        from .fsgs_loop import train_fsgs
+        pipe.use_confidence = getattr(args, "use_confidence", False)
+        train_fsgs(dataset, opt, pipe, args, device)
+        return
+    scene = Scene(dataset, sh_degree=dataset.sh_degree, device=device)
 
     trainer, elapsed = simple_train(
         scene, opt, pipe, dataset,

@@ -106,8 +106,13 @@ def test_port_clis_match_jax_clis(tmp_path):
     for key in ("PSNR", "SSIM"):
         assert abs(port_res[f"ours_{ITER}"][key]
                    - jax_res[f"ours_{ITER}"][key]) <= 1e-4, key
-    assert set(port_res[f"ours_{ITER}"]) == {"PSNR", "SSIM"}
+    # the same keys as the JAX CLI's, LPIPS (or LPIPS_proxy) included
+    assert set(port_res[f"ours_{ITER}"]) == set(jax_res[f"ours_{ITER}"])
+    assert port_res[f"ours_{ITER}"]["LPIPS_backend"] == \
+        jax_res[f"ours_{ITER}"]["LPIPS_backend"]
     per_view = json.load(open(os.path.join(port_dir, "per_view.json")))
+    jax_view = json.load(open(os.path.join(jax_dir, "per_view.json")))
+    assert set(per_view[f"ours_{ITER}"]) == set(jax_view[f"ours_{ITER}"])
     assert sorted(per_view[f"ours_{ITER}"]["PSNR"]) == ["00000.png",
                                                         "00001.png"]
 

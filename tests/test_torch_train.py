@@ -348,17 +348,47 @@ def test_train_step_loss_and_grads_match_jax():
 
 
 def test_render_core_refuses_fsgs_and_dng_options():
-    """`confidence` (FSGS) and `opacity_override` (DNGaussian) are not
-    ported and raise, naming their ROADMAP item."""
+    """`opacity_override` (DNGaussian) is not ported and raises, naming its
+    ROADMAP item (FSGS's `confidence` is ported:
+    `test_render_core_confidence_scales_gradients`)."""
     from sparse_view_3dgs_pack_tpu_torch.renderer import render_core
     state, cams, _ = _train_fixture(width=32, height=32, n=20)
     model = gm.from_jax_state(state, device="cpu").model
     cam = step.CameraBank.from_cameras(cams, device="cpu").camera(0)
-    for kw, item in (({"confidence": torch.ones(20)}, "item 8"),
-                     ({"opacity_override": torch.ones(20)}, "item 9")):
-        with pytest.raises(NotImplementedError, match=item):
-            render_core(model.params(), model.exposure[0], cam, 32, 32,
-                        torch.zeros(3), 1, inference=False, **kw)
+    with pytest.raises(NotImplementedError, match="item 9"):
+        render_core(model.params(), model.exposure[0], cam, 32, 32,
+                    torch.zeros(3), 1, inference=False,
+                    opacity_override=torch.ones(20))
+
+
+def test_render_core_confidence_scales_gradients():
+    """`render_core(confidence=c)` (FSGS, JAX `renderer.py:71-89`): the
+    forward within 1e-5 of the unscaled one (p·c + p·(1 − c) rounds where
+    p does not), every parameter's gradient c times the unscaled one
+    (within 1e-5 of the largest)."""
+    from sparse_view_3dgs_pack_tpu_torch.renderer import render_core
+    state, cams, _ = _train_fixture(width=32, height=32, n=60)
+    n = int(state.n_alive)
+    cam = step.CameraBank.from_cameras(cams, device="cpu").camera(0)
+    c = torch.tensor(np.random.default_rng(10).uniform(0.1, 1.0, n)
+                     .astype(np.float32))
+    outs = []
+    for conf in (None, c):
+        model = gm.from_jax_state(state, device="cpu").model
+        res = render_core(model.params(), model.exposure[0], cam, 32, 32,
+                          torch.zeros(3), 1, inference=False,
+                          confidence=conf)
+        ((res.render ** 2).mean() + res.expected_depth.mean()).backward()
+        outs.append((res.render.detach(),
+                     {k: v.grad for k, v in model.params().items()}))
+    (r0, g0), (r1, g1) = outs
+    np.testing.assert_allclose(r1.numpy(), r0.numpy(), rtol=1e-5, atol=1e-6)
+    for k in PARAMS:
+        want = g0[k] * c.reshape((-1,) + (1,) * (g0[k].ndim - 1))
+        assert float(want.abs().max()) > 0, k
+        np.testing.assert_allclose(g1[k].numpy(), want.numpy(), rtol=0,
+                                   atol=1e-5 * float(want.abs().max()),
+                                   err_msg=k)
 
 
 def test_train_step_marks_its_stages():

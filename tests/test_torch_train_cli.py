@@ -1,7 +1,8 @@
 """The port's training CLI on the CPU: a tiny Blender scene whose images are
 renders of a known cloud, ~30 iterations with densify events, the JAX
 CLI's output tree, read back by the JAX `load_ply` and rendered by the
-port's render CLI; flags that are not ported raise."""
+port's render CLI; flags that are not ported raise (FSGS trains:
+`tests/test_torch_fsgs.py::test_fsgs_train_cli_fires_every_mechanism`)."""
 
 import json
 import os
@@ -77,8 +78,7 @@ def test_train_cli_refuses_what_is_not_ported(tmp_path):
     scene = _scene(tmp_path)
     base = ["-s", scene, "-m", str(tmp_path / "o"), "--device", "cpu",
             "--iterations", "1"]
-    for extra, match in ((["--method", "fsgs"], "item 8"),
-                         (["--method", "dngaussian"], "item 9"),
+    for extra, match in ((["--method", "dngaussian"], "item 9"),
                          (["--method", "mult-dwtgs"], "item 10"),
                          (["--data_parallel", "2"], "data_parallel"),
                          (["--profile", "trace"], "profile")):
