@@ -49,13 +49,31 @@ Phases, one line each or more, any failure exits non-zero:
                counted) on the few-shot fixture at full width (400x400, 24
                cameras, 3 training views, 20k ground-truth Gaussians, a
                30k dense init with 30 stray points, disparity priors),
-               3000 iterations, then the render and metrics CLIs: test
+               2000 iterations, then the render and metrics CLIs: test
                PSNR at least 5 dB above the starting model's, proximity
                appends, warped pseudo steps past the coverage test, the
                LPIPS keys in results.json, every kernel of the path
                launched; K3 and the segment sum against their plain
                versions on one FSGS training render with the depth prior's
                cotangent, with times and bounds
+  dng          `python -m sparse_view_3dgs_pack_tpu_torch.train --method
+               dngaussian` (in this process) on the fsgs phase's fixture
+               with the full-width neural field (16 levels x 2, a 2^19
+               table, 64-wide MLPs, SH 4), 2030 iterations: the soft pass
+               after 1500, near-range prunes at 2001 and 2026 (the range
+               holding 2% of the init); the render CLI through
+               neural_renderer.npz with --video --depth_video and the
+               metrics CLI: test PSNR at least 5 dB above the seeded
+               field's over the init, the prune removed points, two
+               120-frame mp4 files, the LPIPS keys, the CLI's test view
+               within 1e-5 of the in-training eval (its PNG equal in u8,
+               the eval's line equal), every kernel of the path launched;
+               each pass alone from fresh Adam states moves only what it
+               trains; K3 and the segment sum against their plain versions
+               on a hard-pass and a soft-pass render (depth cotangent
+               only); host and device ms per pass (profile of 3
+               iterations), the plain hash-grid encode's forward and
+               backward ms
   knn          knn3's kernel against its plain version, bitwise, on the
                fixture's fused.ply, 300k uniform points and 100k points
                with far outliers and exact duplicates; its times beside
@@ -115,6 +133,7 @@ KERNELS = {   # name → (source, the TPU kernel or JAX reduction it replaces)
 }
 TRAIN_KERNELS = ("raster_fwd", "raster_bwd", "segment_sum")
 FSGS_KERNELS = TRAIN_KERNELS + ("knn3",)
+DNG_KERNELS = FSGS_KERNELS    # knn3: create_from_pcd's scale init
 PROBE_KERNELS = tuple(k for k in KERNELS if k.startswith("probe_"))
 SMALL_TOL = 1e-5     # phases 3-4 at 64x48: abs (depth, gradients: relative
 FULL_TOL = 1e-4      # to the largest); 1080p / 800p: sums in another order
@@ -131,13 +150,23 @@ CLI_W, CLI_ITERS, CLI_INIT_POINTS = 400, 600, 1000
 # the fsgs phase: `scripts/fsgs_fewshot_bench.py`'s fixture at full width
 # (400x400, 24 cameras, 3 training views, 20k ground-truth Gaussians, a 30k
 # dense init) with 30 stray points in the init; a shortened schedule in
-# which every FSGS mechanism fires
+# which every FSGS mechanism fires (2000 iterations since the dng phase
+# joined the run; 3000 before)
 FSGS_W, FSGS_GAUSS, FSGS_DENSE, FSGS_OUTLIERS = 400, 20_000, 30_000, 30
-FSGS_ITERS = 3000
-FSGS_FLAGS = ("--start_sample_pseudo", "500", "--end_sample_pseudo", "2800",
+FSGS_ITERS = 2000
+FSGS_FLAGS = ("--start_sample_pseudo", "500", "--end_sample_pseudo", "1800",
               "--sample_pseudo_interval", "10", "--proximity_until_iter",
               "1500", "--densify_grad_threshold", str(0.0002 * 800 / FSGS_W),
               "--position_lr_max_steps", str(FSGS_ITERS))
+# the dng phase: DNGaussian on the fsgs phase's fixture with the full-width
+# field (16 levels x 2, a 2^19 table, 64-wide MLPs, SH 4 directions), past
+# the soft pass's start and the first near-range prunes (after 2000, every
+# 25)
+DNG_ITERS = 2030
+DNG_FLAGS = ("--soft_depth_start", "1500", "--densify_grad_threshold",
+             str(0.0002 * 800 / FSGS_W), "--position_lr_max_steps",
+             str(DNG_ITERS))
+DNG_PATCH_IDX = 3     # patch size 8 for the checks outside the loop
 KNN_UNIFORM, KNN_STRESS = 300_000, 100_000
 # H100 SXM published peaks: float32 outside the
 # tensor cores, and HBM3 bandwidth
@@ -166,24 +195,47 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+PROFILE_TRIES = 3
+
+
+def _trace(fn, n: int):
+    """(CUDA events, host ms per call) of `n` calls of `fn` under
+    torch.profiler. A trace now and then comes back with no CUDA activity
+    at all (CUPTI drops the whole buffer); such a trace is taken again, up
+    to PROFILE_TRIES times, and the events are empty only if every try
+    lost them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(PROFILE_TRIES):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / n
+        events = list(prof.events())
+        if any(e.device_type == DeviceType.CUDA for e in events):
+            break
+    return events, wall
+
+
 def device_ms(fn, reps: int) -> float:
     """Mean device milliseconds per call of `fn` over `reps` calls: the
     summed durations of the CUDA kernels (and copies) it runs, from a
     torch.profiler trace. For a call so short that the host cannot launch
     it as fast as the card runs it, CUDA events around a run of calls time
-    the host instead."""
+    the host instead. If every trace lost its device activity, CUDA events
+    time the run, and the line says so."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    events, _ = _trace(fn, reps)
+    dev = [e for e in events if e.device_type == DeviceType.CUDA]
     if not dev:
-        raise AssertionError("the profiler recorded no device activity")
+        log("profile", f"{PROFILE_TRIES} traces recorded no device "
+                       f"activity; timed with CUDA events instead")
+        return cuda_ms(fn, reps)
     return sum(e.time_range.end - e.time_range.start
                for e in dev) / 1e3 / reps
 
@@ -818,16 +870,17 @@ def _train_kernels(proj, ba, bg, args, fwd, W, H, phase: str,
                             bound_by=sb[1], library_ms=t_seg_lib)}
 
 
-def _stages(events, dev, n: int) -> dict:
+def _stages(events, dev, n: int, prefixes=STAGE_PREFIXES) -> dict:
     """stage → [host ms, device ms] per call. A stage is a
-    `record_function` range of the port (`STAGE_PREFIXES`); each kernel's
-    device time goes to the innermost range around the host call that
-    launched it (the CUDA runtime call of the same correlation id).
-    Kernels launched outside every range go to "other"."""
+    `record_function` range of the port whose name starts with one of
+    `prefixes`; each kernel's device time goes to the innermost such range
+    around the host call that launched it (the CUDA runtime call of the
+    same correlation id). Kernels launched outside every range go to
+    "other"."""
     from torch.autograd import DeviceType
     cpu = [e for e in events if e.device_type == DeviceType.CPU]
     ranges = [(e.time_range.start, e.time_range.end, e.name) for e in cpu
-              if e.name.startswith(STAGE_PREFIXES)]
+              if e.name.startswith(prefixes)]
     runtime = {e.id: e.time_range.start for e in cpu
                if e.name.startswith("cu")}
     out = {name: [0.0, 0.0] for _, _, name in sorted(ranges)}
@@ -843,23 +896,15 @@ def _stages(events, dev, n: int) -> dict:
     return out
 
 
-def _profile(fn, n: int) -> dict:
-    """Device busy time, ops, top kernels and the stage breakdown per call
-    of `fn` over `n` calls, from torch.profiler's CUDA activity."""
+def _profile(fn, n: int, prefixes=STAGE_PREFIXES) -> dict:
+    """Device busy time, ops, top kernels and the breakdown by the ranges
+    named with `prefixes` per call of `fn` over `n` calls, from
+    torch.profiler's CUDA activity."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3 / n
-    events = list(prof.events())
+    events, wall = _trace(fn, n)
     # the ranges' own device-side spans are not work
     dev = [e for e in events if e.device_type == DeviceType.CUDA
-           and not e.name.startswith(STAGE_PREFIXES)]
+           and not e.name.startswith(STAGE_PREFIXES + tuple(prefixes))]
     if not dev:
         return {}
     spans = sorted((e.time_range.start, e.time_range.end) for e in dev)
@@ -876,7 +921,7 @@ def _profile(fn, n: int) -> dict:
         by_name[e.name] = by_name.get(e.name, 0.0) + (
             e.time_range.end - e.time_range.start) / 1e3 / n
     return {"busy_ms": busy, "wall_ms": wall, "ops": len(dev) / n,
-            "by_name": by_name, "stages": _stages(events, dev, n)}
+            "by_name": by_name, "stages": _stages(events, dev, n, prefixes)}
 
 
 def _profile_line(prof: dict, what: str) -> str:
@@ -1591,7 +1636,343 @@ def phase_fsgs(work: str, device) -> dict:
     entries["knn3"] = phase_knn(fused, device)
     for name, entry in entries.items():
         entry["launches"] = used[name]
-    return entries
+    return entries, scene
+
+
+def _dng_bwd_args(model, field, bank, cam_idx, kind, cfg, device):
+    """Backward inputs of one DNGaussian depth-pass render of `model` from
+    training view `cam_idx`: `hard` at unit colours and opacity 0.95,
+    `soft` with the field's colours and opacities; the cotangent of the
+    patch-normalised depth losses on the expected depth, the colour,
+    inverse-depth and alpha cotangents zero (as in the passes)."""
+    from sparse_view_3dgs_pack_tpu_torch.models.neural_field import \
+        gaussian_outputs
+    from sparse_view_3dgs_pack_tpu_torch.ops.binning import bin_gaussians
+    from sparse_view_3dgs_pack_tpu_torch.ops.projection import \
+        project_gaussians
+    from sparse_view_3dgs_pack_tpu_torch.ops.raster import rasterize_forward
+    from sparse_view_3dgs_pack_tpu_torch.renderer import (TRAIN_TILE_X,
+                                                          TRAIN_TILE_Y)
+    from sparse_view_3dgs_pack_tpu_torch.train import dng_loop
+    W, H, tx, ty = cfg.width, cfg.height, TRAIN_TILE_X, TRAIN_TILE_Y
+    view = dng_loop.bank_view(bank, cam_idx)
+    cam = view.cam
+    with torch.no_grad():
+        if kind == "hard":
+            colors = torch.ones((model.num_points, 3), device=device)
+            opac = torch.full((model.num_points,), dng_loop.HARD_OPACITY,
+                              device=device)
+        else:
+            colors, opac = gaussian_outputs(field, model.xyz, model.opacity,
+                                            cam.cam_center)
+        proj = project_gaussians(
+            means3d=model.xyz, scales=torch.exp(model.scaling),
+            quats=model.rotation, opacities=opac, viewmat=cam.viewmat,
+            full_proj=cam.full_proj, cam_center=cam.cam_center,
+            tan_fovx=cam.tan_fovx, tan_fovy=cam.tan_fovy, width=W,
+            height=H, sh=None, sh_degree=cfg.sh_degree,
+            colors_precomp=colors)
+    ba = bin_gaussians(proj.means2d, proj.depths, proj.rect_radii, W, H,
+                       tx, ty)
+    bg = torch.zeros(3, device=device)
+    args = _raster_args(proj, ba, bg)
+    fwd = rasterize_forward(*args, W, H, tx, ty, True)
+    depth = fwd.depth.clone().requires_grad_(True)
+    (view.has_depth * dng_loop._depth_losses(
+        depth, view.depth_mono, view.gt, DNG_PATCH_IDX, cfg)).backward()
+    if not float(depth.grad.abs().max()) > 0:
+        raise AssertionError(f"the {kind} pass's depth cotangent is zero")
+    zero = torch.zeros_like(fwd.invdepth)
+    return proj, ba, bg, args + (fwd.log_t, fwd.n_contrib,
+                                 torch.zeros_like(fwd.color), zero,
+                                 depth.grad, zero, W, H, tx, ty), fwd
+
+
+def _dng_pass_moves(model, field, bank, cfg, device) -> None:
+    """Each pass from fresh Adam states (so a group moves only by its own
+    gradient) on training view 0: the hard pass moves xyz alone, the soft
+    pass the opacity, the table and sigma_net, the photometric pass the
+    geometry, the opacity and the whole field (the colours come from the
+    field, so the SH stay); coord_center never (LR 0); each pass steps its
+    Adam states once."""
+    from sparse_view_3dgs_pack_tpu_torch.train import dng_loop, optim
+    from sparse_view_3dgs_pack_tpu_torch.train.step import sh_band_mask
+    view = dng_loop.bank_view(bank, 0)
+    band = sh_band_mask(cfg.sh_degree, cfg.sh_degree, device)
+    bg = torch.zeros(3, device=device)
+    lrs = {k: 1e-4 for k in model.params()}
+    flrs = dng_loop.neural_lrs(field)
+    geometry = ["opacity", "rotation", "scaling", "xyz"]
+    # the depth losses see the opacity, not the colours: the soft pass
+    # reaches the table and sigma_net, not color_net
+    sigma = sorted(k for k in field.params()
+                   if k.startswith(("encoder", "sigma_net")))
+    mlp = sorted(k for k in field.params() if k != "coord_center")
+    runs = {
+        "hard": (lambda a, fa: dng_loop.hard_pass(
+            model, a, view, DNG_PATCH_IDX, lrs, band, bg, cfg),
+            ["xyz"], [], (1, 0)),
+        "soft": (lambda a, fa: dng_loop.soft_pass(
+            model, field, a, fa, view, DNG_PATCH_IDX, lrs, flrs, band, bg,
+            cfg), ["opacity"], sigma, (1, 1)),
+        "photo": (lambda a, fa: dng_loop.photo_pass(
+            model, field, a, fa, view, lrs, flrs, band, bg, cfg),
+            geometry, mlp, (1, 1))}
+    snap = lambda m: {k: v.detach().clone() for k, v in m.params().items()}
+    for name, (run, want, want_field, steps) in runs.items():
+        before, fbefore = snap(model), snap(field)
+        adam = optim.init_adam(model.params())
+        fadam = optim.init_adam(field.params())
+        run(adam, fadam)
+        moved = sorted(k for k, v in model.params().items()
+                       if not torch.equal(v, before[k]))
+        fmoved = sorted(k for k, v in field.params().items()
+                        if not torch.equal(v, fbefore[k]))
+        log("dng", f"{name} pass alone: moved {moved}, field {fmoved}; "
+                   f"Adam steps {adam.step}, field {fadam.step}")
+        if (moved, fmoved, (adam.step, fadam.step)) != (want, want_field,
+                                                        steps):
+            raise AssertionError(f"the {name} pass moved {moved} and the "
+                                 f"field's {fmoved} with steps "
+                                 f"{(adam.step, fadam.step)}; expected "
+                                 f"{want}, {want_field}, {steps}")
+
+
+def phase_dng(work: str, scene: str, knn_entry: dict, device) -> dict:
+    """DNGaussian through the train CLI (in this process, launches
+    counted) on the fsgs phase's few-shot fixture with the full-width
+    field, past the soft-pass start and the first near-range prunes; the
+    render CLI (through neural_renderer.npz, with both videos) and the
+    metrics CLI; the gates; each pass alone; K3 and the segment sum on a
+    hard-pass and a soft-pass render; per-pass host and device time, the
+    plain hash-grid encode's time. Returns the dng path's kernel
+    entries."""
+    import contextlib
+    import cv2
+    import io
+    import runpy
+    from sparse_view_3dgs_pack_tpu_torch import render as render_cli
+    from sparse_view_3dgs_pack_tpu_torch.data import readers
+    from sparse_view_3dgs_pack_tpu_torch.data.camera_utils import \
+        camera_list_from_cam_infos
+    from sparse_view_3dgs_pack_tpu_torch.depth.estimator import \
+        PrecomputedDepth
+    from sparse_view_3dgs_pack_tpu_torch.models import gaussians as gm
+    from sparse_view_3dgs_pack_tpu_torch.models.neural_field import (
+        NeuralField, NeuralFieldConfig)
+    from sparse_view_3dgs_pack_tpu_torch.ops.hashgrid import hashgrid_encode
+    from sparse_view_3dgs_pack_tpu_torch.train import dng_loop
+    from sparse_view_3dgs_pack_tpu_torch.train.loop import format_eval
+    from sparse_view_3dgs_pack_tpu_torch.train.step import CameraBank
+    from sparse_view_3dgs_pack_tpu_torch.utils import image_io
+    from sparse_view_3dgs_pack_tpu_torch.utils.pose_utils import \
+        generate_spiral_path
+    info = readers.read_colmap_scene(scene, eval=True, n_views=3,
+                                     point_cloud_type="dense")
+    ns = Namespace(resolution=-1, data_device="cuda")
+    test_cams = camera_list_from_cam_infos(info.test_cameras, 1.0, ns, False,
+                                           True)
+    train_cams = camera_list_from_cam_infos(info.train_cameras, 1.0, ns,
+                                            False, False)
+    extent = float(info.nerf_normalization["radius"])
+    W, H = train_cams[0].width, train_cams[0].height
+    # the starting model the DNG way: the seeded field over the init
+    cfg = dng_loop.DNGConfig(width=W, height=H, sh_degree=3,
+                             error_tolerance=0.01, shape_pena=0.002,
+                             scale_pena=0.005, opa_pena=0.01, use_soft=True)
+    start = gm.create_from_pcd(info.point_cloud.points,
+                               info.point_cloud.colors, n_images=3,
+                               sh_degree=3, device=device)
+    field0 = NeuralField(NeuralFieldConfig(bound=max(extent, 1.0)),
+                         torch.Generator(device=device).manual_seed(0))
+    bg = torch.zeros(3, device=device)
+    psnr0 = dng_loop._dng_evaluate(start, field0, test_cams, bg,
+                                   cfg)["psnr"]
+    # a near range that holds the nearest 2% of the init to the spiral
+    centers = np.stack([c.camera_center for c in generate_spiral_path(
+        train_cams, dng_loop.SPIRAL_FRAMES)])
+    d = np.linalg.norm(info.point_cloud.points[:, None] - centers[None],
+                       axis=-1).min(1)
+    near = float(np.percentile(d, 2))
+    del start, field0
+    log("dng", f"fixture {W}x{H} (the fsgs phase's), {len(train_cams)} "
+               f"training and {len(test_cams)} test views, "
+               f"{len(info.point_cloud.points)} init points, field "
+               f"{NeuralFieldConfig().grid} (bound {max(extent, 1.0):.3f}); "
+               f"test PSNR at iteration 0 (the seeded field): "
+               f"{psnr0:.3f} dB; near range {near:.4f} (2% of the init "
+               f"within it)")
+
+    out = os.path.join(work, "dng_out")
+    argv = ["-s", scene, "-m", out, "--method", "dngaussian", "--eval",
+            "--n_views", "3", "--depth_estimator", "precomputed",
+            "--disable_viewer", "--iterations", str(DNG_ITERS),
+            "--test_iterations", str(DNG_ITERS), "--near_range", str(near),
+            *DNG_FLAGS]
+    buf = io.StringIO()
+    saved = sys.argv
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        sys.argv = ["python -m sparse_view_3dgs_pack_tpu_torch.train", *argv]
+        with contextlib.redirect_stdout(buf):
+            runpy.run_module("sparse_view_3dgs_pack_tpu_torch.train",
+                             run_name="__main__")
+    finally:
+        sys.argv = saved
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    used = read_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    text = buf.getvalue()
+    for line in text.splitlines():
+        if "Evaluating" in line or "DNG" in line:
+            log("dng", line.strip())
+    counts = {k: int(v) for k, v in re.findall(
+        r"(\w+)=(\d+)", [l for l in text.splitlines()
+                          if "DNG counts:" in l][0])}
+    ips = float(re.search(r"\(([0-9.]+) it/s\)", text).group(1))
+    final_eval = re.search(r"Evaluating test: (PSNR \S+ SSIM \S+)",
+                           text).group(1)
+    log("dng", f"python -m sparse_view_3dgs_pack_tpu_torch.train --method "
+               f"dngaussian: {DNG_ITERS} iterations in {secs:.1f} s with "
+               f"set-up ({ips:.2f} it/s in the loop), peak "
+               f"{counts['peak_gaussians']} Gaussians, peak device memory "
+               f"{peak_gib:.3f} GiB; launches "
+               + ", ".join(f"{k} {used[k]}" for k in DNG_KERNELS))
+    for mod, extra in (("render", ["--skip_train", "--video",
+                                   "--depth_video"]), ("metrics", [])):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", f"sparse_view_3dgs_pack_tpu_torch.{mod}",
+             "-m", out, *extra], cwd=REPO, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise AssertionError(f"{mod} CLI failed (rc={proc.returncode}):"
+                                 f"\n{proc.stdout}\n{proc.stderr}")
+        log("dng", f"{mod} CLI ok in {time.perf_counter() - t0:.1f} s")
+    with open(os.path.join(out, "results.json")) as f:
+        res = json.load(f)[f"ours_{DNG_ITERS}"]
+    lp = "LPIPS" if "LPIPS" in res else "LPIPS_proxy"
+    log("dng", f"test PSNR {psnr0:.3f} dB at iteration 0 -> "
+               f"{res['PSNR']:.3f} dB at {DNG_ITERS} (SSIM "
+               f"{res['SSIM']:.4f}, {lp} {res.get(lp, float('nan')):.4f}, "
+               f"LPIPS_backend {res.get('LPIPS_backend')})")
+    frames = {}
+    for name in (f"ours_{DNG_ITERS}.mp4", f"depth_ours_{DNG_ITERS}.mp4"):
+        cap = cv2.VideoCapture(os.path.join(out, "video", name))
+        n = 0
+        while cap.isOpened() and cap.read()[0]:
+            n += 1
+        cap.release()
+        frames[name] = n
+    log("dng", f"video frames read back by cv2: {frames}")
+
+    # the model and field as the render CLI loads them, against the
+    # in-training evaluation of the same state
+    model_args = Namespace(sh_degree=3, source_path=scene, model_path=out,
+                           images="images", depths="", resolution=-1,
+                           white_background=False, train_test_exp=False,
+                           data_device="cuda", eval=True, n_views=3,
+                           point_cloud_type="dense")
+    loaded, render_fn = render_cli.load_model(model_args, DNG_ITERS, device)
+    model, field = loaded.gaussians, render_fn.keywords["field"]
+    cli_img = render_fn(model, test_cams[0], [0.0, 0.0, 0.0],
+                        sh_degree_active=3).render
+    eval_img = dng_loop.dng_eval_view(model, field, test_cams[0], bg,
+                                      cfg).render
+    img_err = float((cli_img - eval_img).abs().max())
+    png = image_io.read_image(os.path.join(out, "test", f"ours_{DNG_ITERS}",
+                                           "renders", "00000.png"))
+    png_diff = int(np.abs(png.astype(int) - render_cli.to_u8(
+        eval_img).astype(int)).max())
+    again = format_eval(dng_loop._dng_evaluate(model, field, test_cams, bg,
+                                               cfg))
+    log("dng", f"test view 0: the render CLI's render vs dng_eval_view "
+               f"{img_err:.3g}, its PNG vs the same in u8 {png_diff}; "
+               f"_dng_evaluate of the saved state '{again}', in training "
+               f"'{final_eval}'")
+
+    fails = []
+    if not res["PSNR"] >= psnr0 + 5.0:
+        fails.append(f"test PSNR rose by {res['PSNR'] - psnr0:.3f} dB, "
+                     f"less than 5")
+    if not counts["soft_passes"] > 0:
+        fails.append("the soft pass never ran")
+    if not counts["near_pruned"] > 0:
+        fails.append(f"the near-range prune removed nothing in "
+                     f"{counts['near_prunes']} prunes")
+    if not (img_err <= SMALL_TOL and png_diff == 0 and again == final_eval):
+        fails.append(f"the render CLI's test view is {img_err:.3g} from "
+                     f"the in-training eval (PNG {png_diff} levels; "
+                     f"'{again}' vs '{final_eval}')")
+    if set(frames.values()) != {120}:
+        fails.append(f"the videos have {frames} frames, not 120")
+    if lp not in res or "LPIPS_backend" not in res:
+        fails.append(f"results.json lacks the LPIPS keys: {sorted(res)}")
+    fails += [f"{k} was not launched on the dng path" for k in DNG_KERNELS
+              if not used[k] > 0]
+    if fails:
+        raise AssertionError("dng: " + "; ".join(fails))
+
+    # each pass alone, then the kernels on its renders, then time
+    estimator = PrecomputedDepth(os.path.join(scene, "depth_maps"))
+    for c in train_cams:
+        c.invdepthmap = (255.0 - np.asarray(estimator.depth_for_camera(c))
+                         ).astype(np.float32)
+        c.depth_mask = np.ones_like(c.invdepthmap)
+        c.depth_reliable = True
+    bank = CameraBank.from_cameras(train_cams, 3, device)
+    _dng_pass_moves(model, field, bank, cfg, device)
+    entries = {}
+    for kind in ("hard", "soft"):
+        proj, ba, bgt, args, fwd = _dng_bwd_args(model, field, bank, 0,
+                                                 kind, cfg, device)
+        entries[kind] = _train_kernels(proj, ba, bgt, args, fwd, W, H,
+                                       "dng", device)
+        log("dng", f"{kind}-pass render: K3 vs plain "
+                   f"{entries[kind]['raster_bwd']['max_abs_err']:.3g}, "
+                   f"segment sum {entries[kind]['segment_sum']['max_abs_err']:.3g}"
+                   f" (relative to the largest)")
+
+    from sparse_view_3dgs_pack_tpu_torch.train import optim
+    adam, fadam = (optim.init_adam(model.params()),
+                   optim.init_adam(field.params()))
+    lrs = {k: 1e-5 for k in model.params()}
+    flrs = dng_loop.neural_lrs(field)
+
+    def step():
+        dng_loop.dng_step(model, field, adam, fadam, bank, 0, DNG_PATCH_IDX,
+                          lrs, flrs, 3, bg, cfg._replace(use_smooth=True))
+
+    step()
+    prof = _profile(step, 3, ("dng/",))
+    log("dng", _profile_line(prof, f"3 DNG iterations ({model.num_points} "
+                                   f"Gaussians, all three passes)"))
+
+    x = (model.xyz - field.coord_center).detach()
+    grid = field.cfg.grid
+    cot = torch.randn((x.shape[0], grid.output_dim), device=device)
+    with torch.no_grad():
+        t_enc = cuda_ms(lambda: hashgrid_encode(field.encoder, x, grid,
+                                                field.cfg.bound), 20)
+
+    def fwd_bwd():
+        field.encoder.grad = None
+        hashgrid_encode(field.encoder, x, grid, field.cfg.bound).backward(
+            cot)
+
+    t_both = cuda_ms(fwd_bwd, 20)
+    log("dng", f"plain hash-grid encode of {x.shape[0]} points "
+               f"({grid.num_levels} levels x {grid.level_dim}, 2^"
+               f"{grid.log2_hashmap_size} table): forward {t_enc:.3f} ms, "
+               f"forward + backward {t_both:.3f} ms (backward "
+               f"{t_both - t_enc:.3f} ms, the table's scatter-add)")
+    out_entries = dict(entries["soft"])
+    out_entries["knn3"] = dict(knn_entry)
+    for name, entry in out_entries.items():
+        entry["launches"] = used[name]
+    return out_entries
 
 
 def phase_probes(device, train_fwd: dict) -> dict:
@@ -1804,7 +2185,9 @@ def main() -> None:
     del trained
     scene, ips = phase_train_cli(work, device)
     phase_resume_cli(work, scene, ips)
-    paths["fsgs"] = phase_fsgs(work, device)
+    paths["fsgs"], fsgs_scene = phase_fsgs(work, device)
+    paths["dng"] = phase_dng(work, fsgs_scene, paths["fsgs"]["knn3"],
+                             device)
     paths["probes"] = phase_probes(device, paths["train"]["raster_fwd"])
     ply, paths["render"] = phase_render(device, work)
     phase_cli(ply, work)

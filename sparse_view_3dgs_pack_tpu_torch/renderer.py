@@ -1,6 +1,6 @@
 """Render entry point: projection → tile binning → rasterize.
 
-Counterpart of `sparse_view_3dgs_pack_tpu/renderer.py:27-219`. Inference
+Counterpart of `sparse_view_3dgs_pack_tpu/renderer.py:27-272`. Inference
 (render, eval, scoring) and training renders share `render_core`; a model
 on a CUDA device goes through the hand-written kernels (`csrc/raster_fwd.cu`,
 and `csrc/raster_bwd.cu` for the training render's backward), a model on
@@ -17,6 +17,7 @@ import torch
 from torch.profiler import record_function
 
 from .models.gaussians import GaussianModel
+from .models.neural_field import NeuralField, gaussian_outputs
 from .ops.binning import bin_gaussians
 from .ops.projection import project_gaussians
 from .ops.raster import make_rasterizer
@@ -48,12 +49,6 @@ def _camera_tensors(cam, device):
             torch.as_tensor(cam.cam_center, **f32))
 
 
-def _not_ported(what: str, item: int):
-    raise NotImplementedError(
-        f"{what} is not ported to the PyTorch package yet (ROADMAP Queue 1 "
-        f"item {item})")
-
-
 def render_core(params: dict, exposure_mat: torch.Tensor, cam,
                 width: int, height: int, bg_color: torch.Tensor,
                 sh_degree_active: int,
@@ -72,15 +67,15 @@ def render_core(params: dict, exposure_mat: torch.Tensor, cam,
     `RasterizeFunction`; the returned `viewspace_points` keeps its gradient.
     `confidence` (N,) scales each Gaussian's gradients (FSGS, JAX
     `renderer.py:71-89`): the straight-through p·c + detach(p·(1 − c)),
-    whose forward rounds as the JAX one does. `opacity_override` serves
-    DNGaussian, which is not ported."""
-    if opacity_override is not None:
-        _not_ported("DNGaussian's opacity_override", 9)
+    whose forward rounds as the JAX one does. `opacity_override` (N,)
+    takes the place of sigmoid(params["opacity"]): activated opacities
+    (DNGaussian's neural opacity, or its depth pass's constant)."""
     xyz = params["xyz"]
     with record_function("render/projection"):
         viewmat, full_proj, cam_center = _camera_tensors(cam, xyz.device)
         scales = torch.exp(params["scaling"])
-        opacity = torch.sigmoid(params["opacity"][:, 0])
+        opacity = (torch.sigmoid(params["opacity"][:, 0])
+                   if opacity_override is None else opacity_override)
         quats = params["rotation"]
 
         if confidence is not None:
@@ -153,3 +148,27 @@ def render(model: GaussianModel, camera, bg_color,
                        camera.width, camera.height, bg, sh_degree_active,
                        scaling_modifier, antialiasing, use_trained_exp,
                        override_color, inference=True)
+
+
+@torch.no_grad()
+def render_neural(model: GaussianModel, camera, bg_color, field: NeuralField,
+                  sh_degree_active: Optional[int] = None,
+                  scaling_modifier: float = 1.0,
+                  antialiasing: bool = False) -> RenderResult:
+    """DNGaussian inference render (JAX `render_neural`, `renderer.py:
+    222-272`): each Gaussian's colour and opacity come from the neural
+    field `field`, as in training (the reference reloads its GridRenderer
+    to render, `DNGaussian/render.py:138-147`; the PLY alone holds the
+    initial SH colours)."""
+    device = model.xyz.device
+    if sh_degree_active is None:
+        sh_degree_active = model.max_sh_degree
+    cam = camera.params()
+    color, opacity = gaussian_outputs(
+        field, model.xyz, model.opacity,
+        torch.as_tensor(cam.cam_center, dtype=torch.float32, device=device))
+    bg = torch.as_tensor(bg_color, dtype=torch.float32, device=device)
+    return render_core(model.params(), torch.eye(3, 4, device=device), cam,
+                       camera.width, camera.height, bg, sh_degree_active,
+                       scaling_modifier, antialiasing, False, color,
+                       inference=True, opacity_override=opacity)

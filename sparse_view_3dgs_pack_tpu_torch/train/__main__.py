@@ -19,9 +19,14 @@ trains FSGS (`train/fsgs_loop.py`) with its flags: `--depth_estimator`
 (`precomputed` reads `<source>/depth_maps/`), `--proximity_until_iter`,
 `--dist_thres`, `--use_confidence`, and the readers' `--n_views` and
 `--point_cloud_type` (`dense` starts from `<n>_views/dense/fused.ply`).
-Not ported yet, and raising NotImplementedError: `--method
-dngaussian|mult-dwtgs`, `--data_parallel` other than 1, `--profile`; the
-checkpoint flags apply to the 3dgs / lgdwt loop only, as in the JAX CLI.
+`--method dngaussian` trains DNGaussian (`train/dng_loop.py`) with
+`--near_range` (the spiral near-range prune), `--dataset_type
+llff|dtu|blender`, `--use_neural 0|1` and `--soft_depth_start`, and writes
+`neural_renderer.npz` beside each PLY when `--use_neural 1`. `--seed`
+seeds the host RNGs and the camera order (default 0, the JAX CLI's fixed
+seed). Not ported yet, and raising NotImplementedError: `--method
+mult-dwtgs`, `--data_parallel` other than 1, `--profile`; the checkpoint
+flags apply to the 3dgs / lgdwt loop only, as in the JAX CLI.
 """
 
 from __future__ import annotations
@@ -90,6 +95,8 @@ def main(argv=None):
     parser.add_argument("--device", default="cuda",
                         help="cuda (the CUDA kernels) or cpu (their plain "
                              "PyTorch versions); never falls back")
+    parser.add_argument("--seed", type=int, default=0,
+                        help="seed of the host RNGs and the camera order")
     args = parser.parse_args(argv)
     _check_ported(args)
     args.save_iterations.append(args.iterations)
@@ -97,7 +104,7 @@ def main(argv=None):
 
     print("Optimizing " + args.model_path)
     torch.autograd.set_detect_anomaly(args.detect_anomaly)
-    safe_state(args.quiet)
+    safe_state(args.quiet, args.seed)
     os.makedirs(args.model_path, exist_ok=True)
     write_cfg_args(args.model_path, args)
 

@@ -1,7 +1,7 @@
 """Densification statistics, clone / split / prune, FSGS proximity
-densification, opacity reset.
+densification, opacity reset, DNGaussian's prune of an arbitrary mask.
 
-Counterpart of `sparse_view_3dgs_pack_tpu/train/densify.py:39-223`
+Counterpart of `sparse_view_3dgs_pack_tpu/train/densify.py:39-242`
 (reference `gaussian_model.py:316-473`). The JAX state keeps a padded
 buffer with an alive prefix; the port holds only alive rows, so appended
 rows are concatenated and pruning keeps the surviving rows in order. The
@@ -16,7 +16,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ..models.gaussians import PARAM_NAMES, GaussianModel
+from ..models.gaussians import PARAM_NAMES, STAT_NAMES, GaussianModel
 from ..utils.general import build_rotation, inverse_sigmoid
 from . import optim
 
@@ -155,3 +155,19 @@ def reset_opacity(model: GaussianModel, adam: optim.AdamState) -> None:
     model.opacity.copy_(inverse_sigmoid(
         torch.clamp(torch.sigmoid(model.opacity), max=0.01)))
     optim.zero_param(adam, "opacity")
+
+
+@torch.no_grad()
+def prune_only(model: GaussianModel, adam: optim.AdamState,
+               mask: torch.Tensor) -> int:
+    """Drop the Gaussians in `mask` (N,) bool, keeping the others in order
+    with their Adam moments and densification statistics (JAX
+    `prune_only`, `densify.py:227-242`; DNGaussian's spiral near-range
+    prune, reference `train_llff.py:206-213`). Returns the number pruned."""
+    keep = ~mask
+    stats = {name: getattr(model, name)[keep] for name in STAT_NAMES}
+    model.set_rows({k: v[keep] for k, v in model.params().items()})
+    for name, value in stats.items():
+        setattr(model, name, value)
+    optim.select_rows(adam, keep)
+    return int(mask.sum())

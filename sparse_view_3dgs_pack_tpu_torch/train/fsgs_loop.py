@@ -41,7 +41,8 @@ from . import debug
 from .densify import (add_densification_stats, densify_and_prune,
                       proximity_densify, reset_opacity)
 from .loop import evaluate_cameras, format_eval
-from .optim import AdamState, adam_update, init_adam, make_lr_schedules
+from .optim import (AdamState, adam_update, grads_or_zeros, init_adam,
+                    make_lr_schedules)
 from .step import CameraBank, sh_band_mask
 
 # warped pseudo steps with less covered area than this are skipped
@@ -74,11 +75,6 @@ def _render(p: dict, cam, bg, cfg: FSGSConfig, confidence=None):
                        confidence=confidence)
 
 
-def _grads(params: dict) -> dict:
-    return {k: (t.grad if t.grad is not None else torch.zeros_like(t))
-            for k, t in params.items()}
-
-
 def fsgs_step(model: GaussianModel, adam: AdamState, bank: CameraBank,
               cam_idx: int, lrs: dict, depth_weight: float,
               active_degree: int, bg, cfg: FSGSConfig,
@@ -101,7 +97,7 @@ def fsgs_step(model: GaussianModel, adam: AdamState, bank: CameraBank,
     dterm = fsgs_depth_loss(res.expected_depth, bank.invdepth[cam_idx])
     loss = loss + depth_weight * bank.has_depth[cam_idx] * dterm
     loss.backward()
-    adam_update(model.params(), _grads(params), adam, lrs)
+    adam_update(model.params(), grads_or_zeros(params), adam, lrs)
     vs = res.viewspace_points
     add_densification_stats(
         model, vs.grad if vs.grad is not None else torch.zeros_like(vs),
@@ -121,7 +117,7 @@ def fsgs_render_pseudo(model: GaussianModel, cam, active_degree: int, bg,
 def _masked_update(model, adam, params, ok, lrs, weight):
     """Adam on the gradients when `ok`, else on zeros at lr 0 (the moments
     still decay and the step still counts, as in the JAX step)."""
-    grads = _grads(params)
+    grads = grads_or_zeros(params)
     if not ok:
         grads = {k: torch.zeros_like(v) for k, v in grads.items()}
     adam_update(model.params(), grads, adam,

@@ -7,7 +7,10 @@ Counterpart of `sparse_view_3dgs_pack_tpu/train/optim.py` (reference
 steps per parameter, while the JAX state has one `step` for every group
 (`optim.py:65`), and its update is not written in the same order. Updates
 are in place; the model holds only alive rows, so the moments are row
-tensors of the same length as the parameters.
+tensors of the same length as the parameters. DNGaussian's neural field
+trains with the same update over its own parameters (JAX `init_tree_adam`
+/ `tree_adam_update`, `optim.py:130-155`): `init_adam(field.params())`
+gives it an AdamState, and so a step counter, of its own.
 """
 
 from __future__ import annotations
@@ -75,6 +78,13 @@ def make_exposure_schedule(opt_args) -> Callable:
         lr_delay_steps=getattr(opt_args, "exposure_lr_delay_steps", 0),
         lr_delay_mult=getattr(opt_args, "exposure_lr_delay_mult", 0.0),
         max_steps=getattr(opt_args, "iterations", 30000))
+
+
+def grads_or_zeros(params: dict) -> dict:
+    """name → the parameter's gradient, zeros where the backward gave it
+    none (a group the step detached still takes its Adam step)."""
+    return {k: (t.grad if t.grad is not None else torch.zeros_like(t))
+            for k, t in params.items()}
 
 
 def _bias_corrections(step: int, device):

@@ -2,8 +2,8 @@
 
 Counterpart of `sparse_view_3dgs_pack_tpu/train/recipes.py`. Vanilla 3DGS
 is LGDWT with the DWT terms off; both run `simple_train`. FSGS runs
-`fsgs_loop.train_fsgs`. DNGaussian and mult-dwtgs are not ported yet and
-raise, naming their ROADMAP item.
+`fsgs_loop.train_fsgs`, DNGaussian `dng_loop.train_dngaussian`. mult-dwtgs
+is not ported yet and raises, naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -13,7 +13,7 @@ import time
 from ..scene import Scene
 from .loop import simple_train
 
-NOT_PORTED = {"dngaussian": 9, "mult-dwtgs": 10}
+NOT_PORTED = {"mult-dwtgs": 10}
 
 
 def _progress_printer(total):
@@ -38,7 +38,7 @@ def train_method(method: str, dataset, opt, pipe, args, device) -> None:
         raise NotImplementedError(
             f"--method {method} is not ported to the PyTorch package yet "
             f"(ROADMAP Queue 1 item {NOT_PORTED[method]})")
-    if method not in ("3dgs", "lgdwt", "fsgs"):
+    if method not in ("3dgs", "lgdwt", "fsgs", "dngaussian"):
         raise ValueError(method)
     # arm the debug snapshot from --debug_from (`train/debug.py`)
     pipe.debug_from = getattr(args, "debug_from", -1)
@@ -49,6 +49,12 @@ def train_method(method: str, dataset, opt, pipe, args, device) -> None:
         from .fsgs_loop import train_fsgs
         pipe.use_confidence = getattr(args, "use_confidence", False)
         train_fsgs(dataset, opt, pipe, args, device)
+        return
+    if method == "dngaussian":
+        from .dng_loop import train_dngaussian
+        train_dngaussian(dataset, opt, pipe, args, device,
+                         near_range=getattr(args, "near_range", 0.0),
+                         dataset_type=getattr(args, "dataset_type", "llff"))
         return
     scene = Scene(dataset, sh_degree=dataset.sh_degree, device=device)
 

@@ -1,6 +1,9 @@
 """The port's render and metrics CLIs against the root JAX CLIs on one tiny
-Blender scene and model directory, each in its own subprocess."""
+Blender scene and model directory, each in its own subprocess; the render
+CLI's spiral videos; `metrics_dtu` and `metrics_count` against the root
+scripts."""
 
+import importlib.util
 import json
 import os
 import subprocess
@@ -125,6 +128,86 @@ def test_clis_device_cuda_raise_without_cuda(tmp_path):
         port_render.main(["-m", model])          # --device defaults to cuda
     with pytest.raises(RuntimeError, match="cuda"):
         port_metrics.main(["-m", model])
-    with pytest.raises(NotImplementedError, match="video"):
-        port_render.main(["-m", model, "--device", "cpu", "--video"])
     assert not os.path.exists(os.path.join(model, "test"))
+
+
+def _root_module(name):
+    """A root script of the repo as a module, without running its main."""
+    spec = importlib.util.spec_from_file_location(
+        f"root_{name}", os.path.join(REPO, f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.timeout(600)
+def test_render_cli_video_writes_120_frame_mp4s(tmp_path):
+    """`--video --depth_video` writes `video/ours_<it>.mp4` and
+    `video/depth_ours_<it>.mp4`: 120 frames of the scene's size each, as
+    cv2 reads them back."""
+    cv2 = pytest.importorskip("cv2")
+    model = _model_dir(tmp_path, "m")
+    _run([sys.executable, "-c", _PORT_CLI,
+          "sparse_view_3dgs_pack_tpu_torch.render", "-m", model, "--device",
+          "cpu", "--skip_train", "--skip_test", "--video", "--depth_video"],
+         subprocess_env())
+    for name in (f"ours_{ITER}.mp4", f"depth_ours_{ITER}.mp4"):
+        cap = cv2.VideoCapture(os.path.join(model, "video", name))
+        assert cap.isOpened(), name
+        frames = []
+        while True:
+            ok, frame = cap.read()
+            if not ok:
+                break
+            frames.append(frame)
+        cap.release()
+        assert len(frames) == port_render.VIDEO_FRAMES == 120, name
+        assert frames[0].shape == (40, 40, 3), name
+        assert max(int(f.max()) for f in frames) > 0, name
+    assert not os.path.exists(os.path.join(model, "test"))
+
+
+def test_depth_colormap_equals_root_cli():
+    """The depth-video colormap, bit for bit the root `render.py`'s, on a
+    depth map with empty (alpha 0) pixels and on an empty frame."""
+    root = _root_module("render")
+    rng = np.random.default_rng(0)
+    depth = rng.uniform(0.5, 5.0, (24, 32)).astype(np.float32)
+    alpha = rng.random((24, 32)).astype(np.float32)
+    alpha[:5] = 0.0
+    for a in (alpha, np.zeros_like(alpha)):
+        np.testing.assert_array_equal(port_render._depth_colormap(depth, a),
+                                      root._depth_colormap(depth, a))
+
+
+@pytest.mark.timeout(600)
+def test_metrics_dtu_and_count_match_root_scripts(tmp_path):
+    """`python -m ...metrics_dtu` against the root `metrics_dtu.py` on the
+    same renders with an object mask (half the image, at another size so
+    it is resized): PSNR and SSIM within 1e-4, the same keys (LPIPS values
+    differ with the proxy, whose weights differ); `metrics_count` writes
+    the root script's `gaussian_counts.json`."""
+    model = _model_dir(tmp_path, "m")
+    port_render.main(["-m", model, "--device", "cpu", "--skip_train"])
+    scene = str(tmp_path / "scene")
+    mask = np.zeros((80, 80), np.uint8)
+    mask[:, :40] = 255
+    os.makedirs(os.path.join(scene, "idr_masks"))
+    image_io.write_png(os.path.join(scene, "idr_masks", "00000.png"), mask)
+    from sparse_view_3dgs_pack_tpu_torch import metrics_count, metrics_dtu
+    metrics_dtu.main(["-m", model, "-s", scene, "--device", "cpu"])
+    with open(os.path.join(model, "results_dtu.json")) as f:
+        port = json.load(f)[f"ours_{ITER}"]
+    _root_module("metrics_dtu").evaluate_dtu([model], scene)
+    with open(os.path.join(model, "results_dtu.json")) as f:
+        root = json.load(f)[f"ours_{ITER}"]
+    assert set(port) == set(root)
+    for key in ("PSNR", "SSIM"):
+        assert abs(port[key] - root[key]) <= 1e-4, key
+
+    metrics_count.main(["-m", model])
+    with open(os.path.join(model, "gaussian_counts.json")) as f:
+        port = json.load(f)
+    _root_module("metrics_count").main(["-m", model])
+    with open(os.path.join(model, "gaussian_counts.json")) as f:
+        assert json.load(f) == port == {f"iteration_{ITER}": 300}

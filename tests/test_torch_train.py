@@ -347,20 +347,6 @@ def test_train_step_loss_and_grads_match_jax():
     assert int((model.denom > 0).sum()) == int((sg.radii > 0).sum()) > 0
 
 
-def test_render_core_refuses_fsgs_and_dng_options():
-    """`opacity_override` (DNGaussian) is not ported and raises, naming its
-    ROADMAP item (FSGS's `confidence` is ported:
-    `test_render_core_confidence_scales_gradients`)."""
-    from sparse_view_3dgs_pack_tpu_torch.renderer import render_core
-    state, cams, _ = _train_fixture(width=32, height=32, n=20)
-    model = gm.from_jax_state(state, device="cpu").model
-    cam = step.CameraBank.from_cameras(cams, device="cpu").camera(0)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        render_core(model.params(), model.exposure[0], cam, 32, 32,
-                    torch.zeros(3), 1, inference=False,
-                    opacity_override=torch.ones(20))
-
-
 def test_render_core_confidence_scales_gradients():
     """`render_core(confidence=c)` (FSGS, JAX `renderer.py:71-89`): the
     forward within 1e-5 of the unscaled one (p·c + p·(1 − c) rounds where

@@ -1,7 +1,8 @@
 """The port's training CLI on the CPU: a tiny Blender scene whose images are
 renders of a known cloud, ~30 iterations with densify events, the JAX
 CLI's output tree, read back by the JAX `load_ply` and rendered by the
-port's render CLI; flags that are not ported raise (FSGS trains:
+port's render CLI; DNGaussian on a forward-facing scene, its neural field
+read back by the render CLI; flags that are not ported raise (FSGS trains:
 `tests/test_torch_fsgs.py::test_fsgs_train_cli_fires_every_mechanism`)."""
 
 import json
@@ -15,6 +16,7 @@ import torch
 
 from sparse_view_3dgs_pack_tpu.models import gaussians as jax_gm
 from sparse_view_3dgs_pack_tpu_torch import render as port_render
+from sparse_view_3dgs_pack_tpu.models import neural_field as jax_nf
 from sparse_view_3dgs_pack_tpu_torch import testing
 from sparse_view_3dgs_pack_tpu_torch.train import __main__ as train_cli
 from torch_port import REPO, subprocess_env
@@ -78,8 +80,7 @@ def test_train_cli_refuses_what_is_not_ported(tmp_path):
     scene = _scene(tmp_path)
     base = ["-s", scene, "-m", str(tmp_path / "o"), "--device", "cpu",
             "--iterations", "1"]
-    for extra, match in ((["--method", "dngaussian"], "item 9"),
-                         (["--method", "mult-dwtgs"], "item 10"),
+    for extra, match in ((["--method", "mult-dwtgs"], "item 10"),
                          (["--data_parallel", "2"], "data_parallel"),
                          (["--profile", "trace"], "profile")):
         with pytest.raises(NotImplementedError, match=match):
@@ -87,3 +88,44 @@ def test_train_cli_refuses_what_is_not_ported(tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             train_cli.main(base[:4] + ["--iterations", "1"])
+
+
+@pytest.mark.timeout(600)
+def test_dng_train_cli_writes_the_neural_field(tmp_path):
+    """`--method dngaussian` (the full-width field, the soft pass from
+    iteration 2) trains 3 iterations on a 48-px forward-facing scene with
+    disparity priors, writes `neural_renderer.npz` beside the PLY in the
+    JAX layout (the JAX loader reads it), and the render CLI renders the
+    test views through it."""
+    scene = testing.write_llff_colmap_scene(str(tmp_path / "scene"),
+                                            size=48, n_gauss=400,
+                                            n_dense=300, n_sparse=60)
+    out = str(tmp_path / "out")
+    proc = subprocess.run(
+        [sys.executable, "-c", _PORT_TRAIN, "-s", scene, "-m", out,
+         "--method", "dngaussian", "--device", "cpu", "--eval",
+         "--n_views", "3", "--depth_estimator", "precomputed",
+         "--iterations", "3", "--soft_depth_start", "1", "--near_range",
+         "0.05", "--test_iterations", "3", "--disable_viewer"],
+        cwd=REPO, env=subprocess_env(), capture_output=True, text=True,
+        timeout=500)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "DNG counts: soft_passes=2" in proc.stdout
+    it_dir = os.path.join(out, "point_cloud", "iteration_3")
+    assert sorted(os.listdir(it_dir)) == ["neural_renderer.npz",
+                                          "point_cloud.ply"]
+    params, cfg = jax_nf.load_neural_npz(os.path.join(it_dir,
+                                                      "neural_renderer.npz"))
+    assert (cfg.grid.num_levels, cfg.grid.log2_hashmap_size,
+            cfg.hidden_dim, cfg.sh_degree) == (16, 19, 64, 4)
+    assert np.isfinite(np.asarray(params["encoder"])).all()
+
+    proc = subprocess.run(
+        [sys.executable, "-m", "sparse_view_3dgs_pack_tpu_torch.render",
+         "-m", out, "--device", "cpu", "--skip_train"], cwd=REPO,
+        env=subprocess_env(), capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "Rendering with neural field" in proc.stdout
+    renders = os.path.join(out, "test", "ours_3", "renders")
+    assert sorted(os.listdir(renders)) == ["00000.png", "00001.png",
+                                           "00002.png"]
