@@ -11,14 +11,16 @@ Phases, one line each or more, any failure exits non-zero:
                build/kernels/; ptxas registers and spills
   3 kernel     the forward kernel against its plain PyTorch version at 64x48
                on the rasterizer test scenes, both instantiations (n_contrib
-               and log T_final too), both tile shapes; and on the frame
+               and log T_final too), both tile shapes, with three colour
+               channels and with one (the NIR pass's C = 1); and on the frame
                built to stress the warp cull (16x8 too); there and on
                the sticky scene both versions' log T_final against float64
                sums and against the plain version's float32 terms summed
                in pair order
   4 bwd        the backward kernel (K3) and the per-Gaussian segment sum
                against their plain versions on the same scenes at 16x16 and
-               32x16, per pair and per Gaussian; then one 800x800 training
+               32x16, C = 3 and C = 1 (pair rows of K = 11 and 9), per pair
+               and per Gaussian; then one 800x800 training
                render of the 100k-Gaussian training model; two kernel runs
                on the same inputs bitwise equal, the segment sum in the
                binning's order bitwise equal to a stable sort's; at 800p
@@ -74,6 +76,29 @@ Phases, one line each or more, any failure exits non-zero:
                only); host and device ms per pass (profile of 3
                iterations), the plain hash-grid encode's forward and
                backward ms
+  nir          mult-dwtgs (RGB+NIR): `nir_step` at the `bench.py:126-155`
+               configuration (800x800, 100k Gaussians from
+               create_from_pcd(use_nir=True), SH 3, lgdwt losses, patch
+               128) with an NIR target, 3 warm-up and 20 timed steps (CUDA
+               events), launches, peak memory; a profile of 3 steps: host
+               and device ms of the RGB pass, the NIR pass, the backward of
+               both and Adam, the busy share; on one step the C = 1
+               forward, K3 and the K = 9 segment sum under the NIR loss's
+               cotangent against their plain versions, with times and
+               bounds. Then `python -m sparse_view_3dgs_pack_tpu_torch.train
+               --method mult-dwtgs` (in this process, launches counted) on
+               the few-shot fixture's cameras with its NIR band (400x400,
+               21 training views, 2000 SfM-like start points), 1500
+               iterations with densify and two opacity resets; the render
+               and metrics CLIs: RGB test PSNR at least 5 dB above the
+               starting model's, NIR test PSNR (the trained model before
+               save) at least 3 dB above, every training view's NIR image
+               loaded, the gain moved, the point count changed with one
+               NIR albedo per Gaussian, the PLY carrying it, the three
+               rasterizer kernels launched twice an iteration and knn3
+               once; knn3 against its plain version on the CLI's
+               2000-point SfM init; the kernels again on a NIR render of
+               the trained model
   knn          knn3's kernel against its plain version, bitwise, on the
                fixture's fused.ply, 300k uniform points and 100k points
                with far outliers and exact duplicates; its times beside
@@ -134,6 +159,7 @@ KERNELS = {   # name → (source, the TPU kernel or JAX reduction it replaces)
 TRAIN_KERNELS = ("raster_fwd", "raster_bwd", "segment_sum")
 FSGS_KERNELS = TRAIN_KERNELS + ("knn3",)
 DNG_KERNELS = FSGS_KERNELS    # knn3: create_from_pcd's scale init
+NIR_KERNELS = FSGS_KERNELS    # likewise
 PROBE_KERNELS = tuple(k for k in KERNELS if k.startswith("probe_"))
 SMALL_TOL = 1e-5     # phases 3-4 at 64x48: abs (depth, gradients: relative
 FULL_TOL = 1e-4      # to the largest); 1080p / 800p: sums in another order
@@ -167,6 +193,15 @@ DNG_FLAGS = ("--soft_depth_start", "1500", "--densify_grad_threshold",
              str(0.0002 * 800 / FSGS_W), "--position_lr_max_steps",
              str(DNG_ITERS))
 DNG_PATCH_IDX = 3     # patch size 8 for the checks outside the loop
+# the nir phase: the fsgs fixture's cameras and cloud with its NIR band,
+# every training view (21 of 24), 2000 SfM-like start points; densify
+# from 100 to 1100 and opacity resets at 500 and 1000 inside 1500
+# iterations
+NIR_W, NIR_GAUSS, NIR_SPARSE, NIR_ITERS = 400, 20_000, 2000, 1500
+NIR_FLAGS = ("--densify_from_iter", "100", "--densification_interval", "100",
+             "--densify_until_iter", "1100", "--opacity_reset_interval",
+             "500", "--densify_grad_threshold", str(0.0002 * 800 / NIR_W),
+             "--position_lr_max_steps", str(NIR_ITERS))
 KNN_UNIFORM, KNN_STRESS = 300_000, 100_000
 # H100 SXM published peaks: float32 outside the
 # tensor cores, and HBM3 bandwidth
@@ -426,18 +461,20 @@ def phase_kernels(device) -> float:
     frames["cull_stress"] = Namespace(means2d=m2, depths=dep, conics=con,
                                       colors=col, opacities=op, radii=radii)
     worst = 0.0
-    for name, proj in frames.items():
+    for (name, proj3), C in ((f, c) for f in frames.items() for c in (3, 1)):
         stress = name == "cull_stress"
+        proj = proj3 if C == 3 else _one_channel(proj3)
         for tx, ty in ((16, 16), (32, 16)) + (((16, 8),) if stress else ()):
             ba = bin_gaussians(proj.means2d, proj.depths, proj.radii, W, H,
                                tx, ty)
-            args = _raster_args(proj, ba, bg)
+            args = _raster_args(proj, ba, bg[:C])
             for n_contrib in (False, True):
                 out = rasterize_forward(*args, W, H, tx, ty, n_contrib)
                 ref = rasterize_forward_torch(*args, W, H, tx, ty, n_contrib)
                 torch.cuda.synchronize()
                 errs = max_errs(out, ref)
-                if n_contrib and name in ("cull_stress", "sticky"):
+                if n_contrib and C == 3 and name in ("cull_stress",
+                                                     "sticky"):
                     exact = [testing.log_t_f64(
                         proj.means2d, proj.conics, proj.opacities, ba.ids,
                         ba.tile_starts, ba.tile_counts, out.n_contrib, W, H,
@@ -461,18 +498,26 @@ def phase_kernels(device) -> float:
                     diff = int((out.n_contrib != ref.n_contrib).sum())
                     msg += f" n_contrib_diff={diff}"
                     if diff:
-                        raise AssertionError(f"{name}: n_contrib differs "
-                                             f"at {diff} pixels")
-                log("kernel", f"{name} {tx}x{ty} "
+                        raise AssertionError(f"{name} C={C}: n_contrib "
+                                             f"differs at {diff} pixels")
+                log("kernel", f"{name} {tx}x{ty} C={C} "
                               f"{'train' if n_contrib else 'infer'} "
                               f"pairs={ba.total_pairs} max_tile="
                               f"{int(ba.tile_counts.max())} {msg}")
                 bad = {k: v for k, v in errs.items() if not v <= SMALL_TOL}
                 if bad:
-                    raise AssertionError(f"{name} {tx}x{ty}: {bad} > "
+                    raise AssertionError(f"{name} {tx}x{ty} C={C}: {bad} > "
                                          f"{SMALL_TOL}")
                 worst = max(worst, *errs.values())
     return worst
+
+
+def _one_channel(proj):
+    """`proj` with its colours cut to the first channel: the NIR pass's
+    C = 1 payload on the same geometry."""
+    fields = proj._asdict() if hasattr(proj, "_asdict") else vars(proj)
+    return Namespace(**{**fields,
+                        "colors": proj.colors[:, :1].contiguous()})
 
 
 def _sort_order(ids, P: int):
@@ -526,8 +571,9 @@ def _bwd_args(proj, ba, bg, W, H, tx, ty, seed=0):
     args = _raster_args(proj, ba, bg)
     fwd = rasterize_forward(*args, W, H, tx, ty, True)
     gen = torch.Generator(device=bg.device).manual_seed(seed)
+    C = proj.colors.shape[-1]
     g = [torch.randn(s, generator=gen, device=bg.device)
-         for s in ((H, W, 3), (H, W), (H, W), (H, W))]
+         for s in ((H, W, C), (H, W), (H, W), (H, W))]
     return args + (fwd.log_t, fwd.n_contrib, *g, W, H, tx, ty), fwd
 
 
@@ -539,18 +585,21 @@ def phase_bwd_small(device) -> float:
     worst = 0.0
     for name in testing.RASTER_SCENES:
         cloud, cam = testing.raster_scene(name)
-        proj = _project_model(_model(cloud).to(device), cam)
-        for tx, ty in ((16, 16), (32, 16)):
+        proj3 = _project_model(_model(cloud).to(device), cam)
+        for C, tx, ty in ((C, tx, ty) for C in (3, 1)
+                          for tx, ty in ((16, 16), (32, 16))):
+            proj = proj3 if C == 3 else _one_channel(proj3)
             ba = bin_gaussians(proj.means2d, proj.depths, proj.radii, W, H,
                                tx, ty)
-            args, _ = _bwd_args(proj, ba, bg, W, H, tx, ty)
+            args, _ = _bwd_args(proj, ba, bg[:C], W, H, tx, ty)
             worst = max(worst, *_bwd_case(args, ba, SMALL_TOL,
-                                          f"{name} {tx}x{ty}"))
+                                          f"{name} {tx}x{ty} C={C}"))
     return worst
 
 
-def _train_setup(device):
-    """The `bench.py:126-155` training configuration."""
+def _train_setup(device, use_nir: bool = False):
+    """The `bench.py:126-155` training configuration; with `use_nir` the
+    model has the NIR parameters and each view a random NIR target."""
     from sparse_view_3dgs_pack_tpu_torch import testing
     from sparse_view_3dgs_pack_tpu_torch.models import gaussians as gm
     from sparse_view_3dgs_pack_tpu_torch.train import step
@@ -559,7 +608,7 @@ def _train_setup(device):
     cols = rng.random((TRAIN_N, 3)).astype(np.float32)
     t0 = time.perf_counter()
     model = gm.create_from_pcd(pts, cols, n_images=4, sh_degree=3,
-                               device=device)
+                               use_nir=use_nir, device=device)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     cams = testing.make_orbit_cameras(4, radius=6.0, width=TRAIN_W,
@@ -567,6 +616,8 @@ def _train_setup(device):
     for c in cams:
         c.image = rng.random((TRAIN_H, TRAIN_W, 3)).astype(np.float32)
         c.alpha_mask = np.ones((TRAIN_H, TRAIN_W), np.float32)
+        if use_nir:
+            c.nir = rng.random((TRAIN_H, TRAIN_W)).astype(np.float32)
     bank = step.CameraBank.from_cameras(cams, 3, device)
     cfg = step.StepConfig(width=TRAIN_W, height=TRAIN_H, sh_degree=3,
                           dwt_enable=True, patch_dwt_enable=True,
@@ -771,6 +822,8 @@ def _train_kernels(proj, ba, bg, args, fwd, W, H, phase: str,
     three kernels' entries of the kernels line."""
     from sparse_view_3dgs_pack_tpu_torch.ops import raster
     tx, ty = args[-2:]
+    P, C, n_pairs = (proj.means2d.shape[0], proj.colors.shape[-1],
+                     ba.total_pairs)
     fargs = _raster_args(proj, ba, bg) + (W, H, tx, ty, True)
     ref = raster.rasterize_forward_torch(*fargs)
     torch.cuda.synchronize()
@@ -778,7 +831,7 @@ def _train_kernels(proj, ba, bg, args, fwd, W, H, phase: str,
     nc_diff = int((~same).sum())
     errs = max_errs(fwd, ref._replace(log_t=torch.where(same, ref.log_t,
                                                         fwd.log_t)))
-    log(phase, f"{W}x{H} training forward, {ba.total_pairs} pairs: kernel "
+    log(phase, f"{W}x{H} training forward C={C}, {n_pairs} pairs: kernel "
                f"vs plain "
                + " ".join(f"{k}={v:.3g}" for k, v in errs.items())
         + f" (log_t where n_contrib agrees) n_contrib_diff={nc_diff} of "
@@ -798,9 +851,8 @@ def _train_kernels(proj, ba, bg, args, fwd, W, H, phase: str,
                    f"{int((fwd.n_contrib[at] == n64).sum())}, with the plain "
                    f"version at {int((ref.n_contrib[at] == n64).sum())}")
     pair_err, g_err = _bwd_case(args, ba, FULL_TOL,
-                                f"{W}x{H} training render", phase)
+                                f"{W}x{H} training render C={C}", phase)
 
-    P, C, n_pairs = proj.means2d.shape[0], 3, ba.total_pairs
     num_tiles = ba.tile_counts.shape[0]
     K = C + 8
     ids = ba.ids
@@ -844,7 +896,8 @@ def _train_kernels(proj, ba, bg, args, fwd, W, H, phase: str,
                              f"(warp, pair) with a contributing lane (K3), "
                              f"{work.fwd_culled_live} with a live one "
                              f"(forward)")
-    log(phase, f"{W}x{H} training shape: raster_fwd {t_fwd:.3f} ms (plain "
+    log(phase, f"{W}x{H} training shape, C={C}: raster_fwd {t_fwd:.3f} ms "
+               f"(plain "
                f"{t_fwd_plain:.1f}, bound {fb[0]:.4f} by {fb[1]}; "
                f"{fb_skips[0]:.4f} with the skipped evaluations); "
                f"raster_bwd {t_bwd:.3f} ms through its wrapper, the pair "
@@ -1975,6 +2028,277 @@ def phase_dng(work: str, scene: str, knn_entry: dict, device) -> dict:
     return out_entries
 
 
+def _nir_bwd_args(model, bank, cam_idx, cfg, device):
+    """Backward inputs of one mult-dwtgs NIR-pass render of `model` from
+    training view `cam_idx`: one channel, sigmoid(nir_albedo)·nir_gain on
+    black; the cotangent of the NIR loss (`nir_weight`·(L1 + 0.2·(1 −
+    SSIM)) of the clamped, masked render) on the colour, the inverse-depth,
+    depth and alpha cotangents zero (as in the pass)."""
+    from sparse_view_3dgs_pack_tpu_torch.losses.nir import combined_nir_loss
+    from sparse_view_3dgs_pack_tpu_torch.ops.binning import bin_gaussians
+    from sparse_view_3dgs_pack_tpu_torch.ops.projection import \
+        project_gaussians
+    from sparse_view_3dgs_pack_tpu_torch.ops.raster import rasterize_forward
+    from sparse_view_3dgs_pack_tpu_torch.renderer import (TRAIN_TILE_X,
+                                                          TRAIN_TILE_Y)
+    from sparse_view_3dgs_pack_tpu_torch.train.nir_loop import nir_colors
+    W, H = cfg.base.width, cfg.base.height
+    tx, ty = TRAIN_TILE_X, TRAIN_TILE_Y
+    cam = bank.camera(cam_idx)
+    with torch.no_grad():
+        proj = project_gaussians(
+            means3d=model.xyz, scales=torch.exp(model.scaling),
+            quats=model.rotation,
+            opacities=torch.sigmoid(model.opacity[:, 0]),
+            viewmat=cam.viewmat, full_proj=cam.full_proj,
+            cam_center=cam.cam_center, tan_fovx=cam.tan_fovx,
+            tan_fovy=cam.tan_fovy, width=W, height=H, sh=None,
+            sh_degree=cfg.base.sh_degree,
+            colors_precomp=nir_colors(model.params()))
+    ba = bin_gaussians(proj.means2d, proj.depths, proj.rect_radii, W, H,
+                       tx, ty)
+    bg = torch.zeros(1, device=device)
+    args = _raster_args(proj, ba, bg)
+    fwd = rasterize_forward(*args, W, H, tx, ty, True)
+    color = fwd.color.clone().requires_grad_(True)
+    pred = torch.clamp(color, 0.0, 1.0)[..., 0] * bank.alpha_mask[cam_idx][
+        ..., 0]
+    (cfg.nir_weight * combined_nir_loss(pred, bank.nir[cam_idx])).backward()
+    if not float(color.grad.abs().max()) > 0:
+        raise AssertionError("the NIR render's colour cotangent is zero")
+    zero = torch.zeros_like(fwd.invdepth)
+    return proj, ba, bg, args + (fwd.log_t, fwd.n_contrib, color.grad, zero,
+                                 zero, zero, W, H, tx, ty), fwd
+
+
+def _kernel_ms_by_instantiation(prof: dict) -> str:
+    """The profile's device ms per call of each rasterizer kernel, by its
+    template arguments (the forward's and K3's channel count first)."""
+    out: dict[str, float] = {}
+    for name, ms in prof.get("by_name", {}).items():
+        m = re.search(r"(raster_fwd_kernel|raster_bwd_kernel)<([^>]*)>",
+                      name)
+        key = (f"{m.group(1)}<{m.group(2).replace(' ', '')}>" if m else
+               "segment_sum_kernel" if "segment_sum" in name else None)
+        if key:
+            out[key] = out.get(key, 0.0) + ms
+    return ", ".join(f"{k} {v:.3f}" for k, v in sorted(out.items()))
+
+
+def phase_nir_step(device) -> dict:
+    """`nir_step` at the `bench.py:126-155` configuration with an NIR
+    target: the C = 1 kernels on one step's NIR render against their plain
+    versions, 20 timed steps, a profile by pass. Returns the nir_step
+    path's kernel entries."""
+    from sparse_view_3dgs_pack_tpu_torch.train import nir_loop, optim
+    model, cams, bank, base, init_s = _train_setup(device, use_nir=True)
+    cfg = nir_loop.NIRConfig(base=base, nir_weight=0.5)
+    log("nir", f"create_from_pcd(use_nir=True) of {TRAIN_N} points on the "
+               f"card in {init_s:.2f} s; NIR target (4, {TRAIN_H}, "
+               f"{TRAIN_W})")
+    adam = optim.init_adam(model.params())
+    running = torch.ones((), device=device)
+    lrs = {k: 1e-3 for k in model.params()}
+    bg = torch.zeros(3, device=device)
+
+    def one():
+        nonlocal running
+        metrics, running = nir_loop.nir_step(model, adam, running, bank, 0,
+                                             lrs, 3, bg, cfg)
+        return metrics
+
+    for _ in range(WARMUP_STEPS):
+        one()
+    torch.cuda.synchronize()
+    proj, ba, bgn, args, fwd = _nir_bwd_args(model, bank, 0, cfg, device)
+    kernels = _train_kernels(proj, ba, bgn, args, fwd, TRAIN_W, TRAIN_H,
+                             "nir", device)
+
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    ev_ms, host_ms, losses, nirs = [], [], [], []
+    for _ in range(TIMED_STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        metrics = one()
+        end.record()
+        torch.cuda.synchronize()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        ev_ms.append(start.elapsed_time(end))
+        losses.append(float(metrics["loss"]))
+        nirs.append(float(metrics["nir"]))
+    counts = read_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    med = float(np.median(ev_ms))
+    log("nir", f"{TIMED_STEPS} nir_steps {TRAIN_W}x{TRAIN_H}, {TRAIN_N} "
+               f"Gaussians SH3, lgdwt + NIR: median {med:.3f} ms per step "
+               f"({1e3 / med:.2f} it/s; host clock median "
+               f"{float(np.median(host_ms)):.3f} ms; min {min(ev_ms):.3f}, "
+               f"max {max(ev_ms):.3f}); peak {peak_gib:.3f} GiB; launches "
+               f"{ {k: counts[k] for k in TRAIN_KERNELS} }")
+    log("nir", "loss / NIR loss over the timed steps (fixed view): "
+               + " ".join(f"{a:.5f}/{b:.5f}" for a, b in zip(losses, nirs)))
+    fails = [f"{k} launched {counts[k]} times in {TIMED_STEPS} nir_steps"
+             for k in TRAIN_KERNELS if counts[k] != 2 * TIMED_STEPS]
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]
+            and nirs[-1] < nirs[0]):
+        fails.append(f"loss or NIR loss not finite and decreasing: "
+                     f"{losses}, {nirs}")
+    if fails:
+        raise AssertionError("nir: " + "; ".join(fails))
+
+    prof = _profile(one, 3, ("nir/",))
+    log("nir", _profile_line(prof, "3 nir_steps (the RGB pass nir/rgb, the "
+                                   "NIR pass nir/nir, one backward of both "
+                                   "nir/backward, Adam nir/adam)"))
+    if prof:
+        log("nir", f"rasterizer kernels' device ms per step by "
+                   f"instantiation: {_kernel_ms_by_instantiation(prof)}")
+    for name in kernels:
+        kernels[name]["launches"] = counts[name]
+    return kernels
+
+
+def phase_nir(work: str, device) -> dict:
+    """mult-dwtgs through the train CLI (in this process, launches
+    counted) on the few-shot fixture's cameras with the NIR band, every
+    training view; the render and metrics CLIs; the gates; the kernels on
+    one NIR render of the trained model and knn3 on the SfM init that the
+    CLI's `create_from_pcd` searches. Returns the nir path's kernel
+    entries."""
+    import contextlib
+    import io
+    from sparse_view_3dgs_pack_tpu_torch import testing
+    from sparse_view_3dgs_pack_tpu_torch.data import readers
+    from sparse_view_3dgs_pack_tpu_torch.data.camera_utils import \
+        camera_list_from_cam_infos
+    from sparse_view_3dgs_pack_tpu_torch.data.ply import read_ply
+    from sparse_view_3dgs_pack_tpu_torch.models import gaussians as gm
+    from sparse_view_3dgs_pack_tpu_torch.train import nir_loop
+    from sparse_view_3dgs_pack_tpu_torch.train import __main__ as train_cli
+    from sparse_view_3dgs_pack_tpu_torch.train.loop import evaluate_cameras
+    from sparse_view_3dgs_pack_tpu_torch.train.step import (CameraBank,
+                                                            StepConfig)
+    from sparse_view_3dgs_pack_tpu_torch.utils.image import psnr
+    t0 = time.perf_counter()
+    scene = testing.write_llff_colmap_scene(
+        os.path.join(work, "nir_scene"), size=NIR_W, n_gauss=NIR_GAUSS,
+        n_dense=1000, n_sparse=NIR_SPARSE, nir=True, device=device)
+    info = readers.read_colmap_scene(scene, eval=True)
+    knn_entry = _knn_case(
+        torch.as_tensor(np.asarray(info.point_cloud.points, np.float32),
+                        device=device), "nir: sparse/0/points3D.ply")
+    ns = Namespace(resolution=-1, data_device="cuda")
+    test_cams = camera_list_from_cam_infos(info.test_cameras, 1.0, ns, False,
+                                           True, use_nir=True)
+    train_cams = camera_list_from_cam_infos(info.train_cameras, 1.0, ns,
+                                            False, False, use_nir=True)
+
+    def nir_psnr(model):
+        return float(torch.stack([psnr(nir_loop.render_nir(model, c),
+                                       torch.as_tensor(c.nir, device=device))
+                                  for c in test_cams]).mean())
+
+    start = gm.create_from_pcd(info.point_cloud.points,
+                               info.point_cloud.colors, n_images=3,
+                               sh_degree=3, use_nir=True, device=device)
+    psnr0 = evaluate_cameras(start, test_cams, [0.0, 0.0, 0.0], 0)["psnr"]
+    nir0 = nir_psnr(start)
+    n0 = start.num_points
+    del start
+    log("nir", f"fixture {NIR_W}x{NIR_W} with its NIR band: "
+               f"{len(train_cams)} training and {len(test_cams)} test views "
+               f"of a {NIR_GAUSS}-Gaussian cloud, {n0} start points, in "
+               f"{time.perf_counter() - t0:.1f} s; test PSNR at iteration "
+               f"0: RGB {psnr0:.3f} dB, NIR {nir0:.3f} dB")
+
+    out = os.path.join(work, "nir_out")
+    argv = ["-s", scene, "-m", out, "--method", "mult-dwtgs", "--eval",
+            "--disable_viewer", "--iterations", str(NIR_ITERS), *NIR_FLAGS]
+    buf = io.StringIO()
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        trained = train_cli.main(argv)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    used = read_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    text = buf.getvalue()
+    for line in text.splitlines():
+        if "NIR images" in line or "training took" in line:
+            log("nir", line.strip())
+    loaded = re.search(r"NIR images: (\d+) of (\d+) training views", text)
+    ips = float(re.search(r"\(([0-9.]+) it/s\)", text).group(1))
+    model = trained.gaussians
+    gain = float(model.nir_gain.detach()[0])
+    nir_end = nir_psnr(model)
+    log("nir", f"python -m sparse_view_3dgs_pack_tpu_torch.train --method "
+               f"mult-dwtgs: {NIR_ITERS} iterations in {secs:.1f} s with "
+               f"set-up ({ips:.2f} it/s in the loop), Gaussians {n0} -> "
+               f"{model.num_points}, nir_gain 1 -> {gain:.6f}, peak device "
+               f"memory {peak_gib:.3f} GiB; launches "
+               + ", ".join(f"{k} {used[k]}" for k in NIR_KERNELS))
+    for mod, extra in (("render", ["--skip_train"]), ("metrics", [])):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", f"sparse_view_3dgs_pack_tpu_torch.{mod}",
+             "-m", out, *extra], cwd=REPO, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise AssertionError(f"{mod} CLI failed (rc={proc.returncode}):"
+                                 f"\n{proc.stdout}\n{proc.stderr}")
+        log("nir", f"{mod} CLI ok in {time.perf_counter() - t0:.1f} s")
+    with open(os.path.join(out, "results.json")) as f:
+        res = json.load(f)[f"ours_{NIR_ITERS}"]
+    ply = read_ply(os.path.join(out, "point_cloud", f"iteration_{NIR_ITERS}",
+                                "point_cloud.ply"))
+    log("nir", f"test PSNR {psnr0:.3f} -> {res['PSNR']:.3f} dB RGB (the "
+               f"render and metrics CLIs; SSIM {res['SSIM']:.4f}), "
+               f"{nir0:.3f} -> {nir_end:.3f} dB NIR (the trained model "
+               f"before save); the PLY's properties end "
+               f"{list(ply)[-3:]}, {len(ply['x'])} rows")
+
+    fails = []
+    if not (loaded and loaded.group(1) == loaded.group(2)
+            == str(len(train_cams))):
+        fails.append(f"the NIR images were not all loaded: "
+                     f"{loaded.group(0) if loaded else 'no line'}")
+    if not res["PSNR"] >= psnr0 + 5.0:
+        fails.append(f"RGB test PSNR rose by {res['PSNR'] - psnr0:.3f} dB, "
+                     f"less than 5")
+    if not nir_end >= nir0 + 3.0:
+        fails.append(f"NIR test PSNR rose by {nir_end - nir0:.3f} dB, "
+                     f"less than 3")
+    if gain == 1.0:
+        fails.append("nir_gain did not move")
+    if model.num_points == n0 or model.nir_albedo.shape != (
+            model.num_points, 1):
+        fails.append(f"{n0} -> {model.num_points} Gaussians, nir_albedo "
+                     f"{tuple(model.nir_albedo.shape)}")
+    if "nir_albedo" not in ply or len(ply["x"]) != model.num_points:
+        fails.append(f"the PLY lacks nir_albedo or rows: {list(ply)}")
+    want = {"raster_fwd": 2 * NIR_ITERS, "raster_bwd": 2 * NIR_ITERS,
+            "segment_sum": 2 * NIR_ITERS, "knn3": 1}
+    fails += [f"{k} launched {used[k]} times, not {n}"
+              for k, n in want.items() if used[k] != n]
+    if fails:
+        raise AssertionError("nir: " + "; ".join(fails))
+
+    bank = CameraBank.from_cameras(train_cams, 3, device)
+    cfg = nir_loop.NIRConfig(base=StepConfig(width=NIR_W, height=NIR_W,
+                                             sh_degree=3), nir_weight=0.5)
+    proj, ba, bgn, args, fwd = _nir_bwd_args(model, bank, 0, cfg, device)
+    entries = _train_kernels(proj, ba, bgn, args, fwd, NIR_W, NIR_W, "nir",
+                             device)
+    entries["knn3"] = dict(knn_entry)
+    for name, entry in entries.items():
+        entry["launches"] = used[name]
+    return entries
+
+
 def phase_probes(device, train_fwd: dict) -> dict:
     """The probe path: its two entry points as a user runs them, then each
     kernel against its plain version, timed. Returns the path's kernel
@@ -2188,6 +2512,8 @@ def main() -> None:
     paths["fsgs"], fsgs_scene = phase_fsgs(work, device)
     paths["dng"] = phase_dng(work, fsgs_scene, paths["fsgs"]["knn3"],
                              device)
+    paths["nir_step"] = phase_nir_step(device)
+    paths["nir"] = phase_nir(work, device)
     paths["probes"] = phase_probes(device, paths["train"]["raster_fwd"])
     ply, paths["render"] = phase_render(device, work)
     phase_cli(ply, work)
@@ -2200,7 +2526,10 @@ def main() -> None:
     # one entry per (kernel, path): launches, times and bound at that
     # path's own shape (train 800x800 16x16 tiles, render 1080p 32x16,
     # fsgs: a 400x400 training render of the trained model and knn3 on
-    # its 30k dense init, probes: the shape each entry names)
+    # its 30k dense init, dng: its soft-pass render, nir_step: the 800x800
+    # NIR render (C = 1) of its 20 timed steps, nir: a 400x400 NIR render
+    # of the trained model and knn3 on its 2000-point SfM init, probes: the
+    # shape each entry names)
     print(json.dumps({"kernels": [
         {"name": name, "path": path, "route": "cuda",
          "source": KERNELS[name][0], "replaces": KERNELS[name][1], **entry}

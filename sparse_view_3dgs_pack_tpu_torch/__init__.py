@@ -21,11 +21,17 @@ Layout:
   models/       GaussianModel (nn.Module), create_from_pcd, PLY IO, the JAX
                 state bridge
   renderer.py   render_core (inference and training) / render
-  losses/       L1, SSIM, Haar-DWT subbands, ELF patch DWT, depth L1
+  losses/       L1, SSIM, Haar-DWT subbands, ELF patch DWT, depth L1, the
+                FSGS, DNGaussian and NIR losses
   train/        step, per-group Adam, densification, Trainer, recipes,
-                checkpoints, the debug snapshot;
+                checkpoints, the debug snapshot, the FSGS, DNGaussian and
+                mult-dwtgs loops;
                 `python -m sparse_view_3dgs_pack_tpu_torch.train`
-  data/, scene.py   scene readers, cameras, Scene (load and init/save)
+                (`...train_nir`: `--method mult-dwtgs`)
+  data/, scene.py   scene readers, cameras, Scene (load and init/save);
+                `data/native.py` the optional `fastio` readers
+  preprocessing/  COLMAP, few-shot, LLFF poses, depth scales, greenhouse
+                TIFFs (host only); `python -m ...convert`
   metrics/      SSIM and PSNR; `python -m ...metrics` is the CLI
   render.py     `python -m sparse_view_3dgs_pack_tpu_torch.render`
 """

@@ -1,10 +1,14 @@
 """CameraInfo → Camera loading with the reference resolution policy.
 
 Counterpart of `sparse_view_3dgs_pack_tpu/data/camera_utils.py:19-124`, with
-the same logic and two changes: images are decoded by `utils/image_io.py`
-(PNG natively; PIL only for other formats and for resizing), and `cv2` is
-imported only when a depth map exists. Images stay host numpy arrays; the
-renderer moves what it needs to the device.
+the same logic and three changes: images are decoded by `utils/image_io.py`
+(PNG natively; PIL only for other formats and for resizing), `cv2` is
+imported only when a depth map exists, and the NIR image is loaded when the
+caller passes `use_nir` (the JAX loader reads `args.use_nir` from the
+ModelParams group, which has no such flag, so the JAX CLI never loads
+one; the reference loads it, `mult-dwtgs/utils/camera_utils.py:65-92`).
+Images stay host numpy arrays; the renderer moves what it needs to the
+device.
 """
 
 from __future__ import annotations
@@ -51,7 +55,9 @@ def _resolve_resolution(orig_w, orig_h, resolution_arg, resolution_scale):
 
 
 def load_cam(args, uid, info, resolution_scale, is_nerf_synthetic,
-             is_test_dataset) -> Camera:
+             is_test_dataset, use_nir: bool = False) -> Camera:
+    """One camera; with `use_nir`, its `nir` (H, W) from
+    `<scene>/nir/<image basename>` where that file exists."""
     arr = _load_image(info.image_path, (info.width, info.height))
     orig_h, orig_w = arr.shape[:2]
     resolution = _resolve_resolution(orig_w, orig_h,
@@ -106,7 +112,7 @@ def load_cam(args, uid, info, resolution_scale, is_nerf_synthetic,
                 invdepth = invdepth[..., 0]
 
     nir = None
-    if getattr(args, "use_nir", False):
+    if use_nir:
         nir_path = os.path.join(os.path.dirname(os.path.dirname(
             info.image_path)), "nir", os.path.basename(info.image_path))
         if os.path.exists(nir_path):
@@ -122,9 +128,10 @@ def load_cam(args, uid, info, resolution_scale, is_nerf_synthetic,
 
 
 def camera_list_from_cam_infos(cam_infos, resolution_scale, args,
-                               is_nerf_synthetic, is_test_dataset):
+                               is_nerf_synthetic, is_test_dataset,
+                               use_nir: bool = False):
     return [load_cam(args, i, c, resolution_scale, is_nerf_synthetic,
-                     is_test_dataset) for i, c in enumerate(cam_infos)]
+                     is_test_dataset, use_nir) for i, c in enumerate(cam_infos)]
 
 
 def camera_to_json(uid, camera):

@@ -6,8 +6,8 @@ implemented from the public COLMAP format spec. Readers return plain
 NamedTuples keyed by id, matching COLMAP's own data model.
 
 The port's copy of `sparse_view_3dgs_pack_tpu/data/colmap.py`, line for
-line except that the binary readers are always the pure-Python ones (the
-JAX module routes two of them through the optional `fastio` extension).
+line: two binary readers go through the optional `fastio` extension when
+it is built (`data/native.py`), as the JAX module's do.
 """
 
 from __future__ import annotations
@@ -104,6 +104,10 @@ def read_cameras_binary(path) -> dict[int, Camera]:
 
 
 def read_images_binary(path, want_points2d: bool = False) -> dict[int, Image]:
+    if not want_points2d:
+        from . import native
+        if native.AVAILABLE:
+            return native.read_images_binary_fast(path)
     images = {}
     with open(path, "rb") as f:
         (n,) = _read(f, "<Q")
@@ -131,6 +135,9 @@ def read_images_binary(path, want_points2d: bool = False) -> dict[int, Image]:
 
 def read_points3D_binary(path):
     """→ (xyz (N,3) f64, rgb (N,3) u8, errors (N,1) f64), reference signature."""
+    from . import native
+    if native.AVAILABLE:
+        return native.read_points3d_binary_fast(path)
     xyzs, rgbs, errs = [], [], []
     with open(path, "rb") as f:
         (n,) = _read(f, "<Q")

@@ -6,8 +6,10 @@ reference's `plyfile`-based writer produces for Gaussian checkpoints
 (reference `LGDWT-GS/scene/gaussian_model.py:225-256`) and SIBR expects.
 
 The port's copy of `sparse_view_3dgs_pack_tpu/data/ply.py`, line for line
-except that the reader is always the pure-Python one (the JAX module tries
-the optional `fastio` extension first).
+except one: the reader tries the optional `fastio` extension first where it
+is built (`data/native.py`), as the JAX module does, and reads the file in
+Python when `fastio` refuses its layout (ascii, a property that is neither
+float32 nor uint8: an OSError); the JAX module catches any exception there.
 """
 
 from __future__ import annotations
@@ -38,6 +40,12 @@ def read_ply(path: str) -> dict[str, np.ndarray]:
     List properties and non-vertex elements are not supported (none appear in
     3DGS point clouds / checkpoints).
     """
+    from . import native
+    if native.AVAILABLE:
+        try:
+            return native.read_ply_fast(path)
+        except OSError:
+            pass  # ascii / unusual dtypes → python path
     with open(path, "rb") as f:
         magic = f.readline().strip()
         if magic != b"ply":

@@ -6,6 +6,8 @@ cameras, and either loads a trained model (`point_cloud/iteration_N/
 point_cloud.ply` plus `exposure.json`) or, for training, initialises one
 from the scene's point cloud and writes `input.ply` and `cameras.json`.
 `save` writes the PLY and `exposure.json` in the JAX package's layout.
+`use_nir` (mult-dwtgs) loads each camera's NIR image from `<scene>/nir/`
+and gives a new model the NIR parameters.
 """
 
 from __future__ import annotations
@@ -29,7 +31,8 @@ from .utils.general import searchForMaxIteration
 class Scene:
     def __init__(self, args, load_iteration: Optional[int] = None,
                  shuffle: bool = True, resolution_scales=(1.0,),
-                 sh_degree: int = 3, device: str | torch.device = "cuda"):
+                 sh_degree: int = 3, device: str | torch.device = "cuda",
+                 use_nir: bool = False):
         device = resolve_device(device)
         self.model_path = args.model_path
         self.loaded_iter = None
@@ -81,10 +84,10 @@ class Scene:
         for scale in resolution_scales:
             self.train_cameras[scale] = camera_list_from_cam_infos(
                 scene_info.train_cameras, scale, args,
-                scene_info.is_nerf_synthetic, False)
+                scene_info.is_nerf_synthetic, False, use_nir)
             self.test_cameras[scale] = camera_list_from_cam_infos(
                 scene_info.test_cameras, scale, args,
-                scene_info.is_nerf_synthetic, True)
+                scene_info.is_nerf_synthetic, True, use_nir)
 
         train = self.train_cameras[resolution_scales[0]]
         n_images = max(len(train), 1)
@@ -110,7 +113,8 @@ class Scene:
                 raise ValueError("no point cloud available for init")
             self.gaussians = gm.create_from_pcd(
                 pcd.points.astype(np.float32), pcd.colors.astype(np.float32),
-                n_images=n_images, sh_degree=sh_degree, device=device)
+                n_images=n_images, sh_degree=sh_degree, use_nir=use_nir,
+                device=device)
 
     def save(self, iteration: int) -> None:
         pc_path = os.path.join(self.model_path, "point_cloud",

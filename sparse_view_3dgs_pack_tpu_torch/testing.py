@@ -1,11 +1,13 @@
 """Synthetic fixtures for the port's tests and `chip_smoke.py`.
 
-`look_at_rt`, `make_orbit_cameras` and `make_gaussian_cloud` are copies of
-the generators in `sparse_view_3dgs_pack_tpu/testing.py` and give the same
-numbers from the same seed; this module adds the rasterizer test scenes of
+`look_at_rt`, `make_orbit_cameras`, `make_gaussian_cloud` and
+`write_colmap_scene` are copies of the generators in
+`sparse_view_3dgs_pack_tpu/testing.py` and give the same numbers from the
+same seed; this module adds the rasterizer test scenes of
 `tests/test_pallas.py`, a Blender-layout scene writer that needs no PIL,
 and the forward-facing COLMAP scene of `scripts/fsgs_fewshot_bench.py`
-(`write_llff_colmap_scene`), rendered by the port's own renderer.
+(`write_llff_colmap_scene`, with an optional NIR band), rendered by the
+port's own renderer.
 """
 
 from __future__ import annotations
@@ -68,6 +70,49 @@ def make_gaussian_cloud(key_or_seed, n, extent=1.0, scale_range=(0.02, 0.12),
     opacity = rng.uniform(-1.0, 3.0, (n, 1)).astype(np.float32)  # pre-sigmoid
     return dict(xyz=xyz, features=features, scales=scales, quats=quats,
                 opacity=opacity)
+
+def write_colmap_scene(root, n_train=6, n_points=500, width=64, height=48,
+                       image_dir="images", seed=0):
+    """Write a minimal-but-real COLMAP scene tree with random-noise PNGs
+    (JAX `testing.write_colmap_scene`: the same cameras, points and pixels
+    from the same seed)."""
+    from .data import colmap
+    from .utils.graphics import fov2focal
+
+    rng = np.random.default_rng(seed)
+    sparse = os.path.join(root, "sparse/0")
+    os.makedirs(sparse, exist_ok=True)
+    imdir = os.path.join(root, image_dir)
+    os.makedirs(imdir, exist_ok=True)
+
+    fovx = math.radians(55)
+    fx = fov2focal(fovx, width)
+    cams = {1: colmap.Camera(1, "PINHOLE", width, height,
+                             np.array([fx, fx, width / 2, height / 2]))}
+    colmap.write_cameras_binary(cams, os.path.join(sparse, "cameras.bin"))
+
+    images = {}
+    for i in range(n_train):
+        a = 2 * math.pi * i / n_train
+        eye = np.array([3 * math.cos(a), 3 * math.sin(a), 1.0])
+        R_c2w, T = look_at_rt(eye, (0, 0, 0))
+        qvec = colmap.rotmat2qvec(R_c2w.T)
+        name = f"img_{i:03d}.png"
+        images[i + 1] = colmap.Image(i + 1, qvec, T, 1, name,
+                                     np.zeros((0, 2)),
+                                     np.zeros((0,), np.int64))
+        arr = (rng.random((height, width, 3)) * 255).astype(np.uint8)
+        image_io.write_png(os.path.join(imdir, name), arr)
+    colmap.write_images_binary(images, os.path.join(sparse, "images.bin"))
+
+    xyz = rng.uniform(-1, 1, (n_points, 3))
+    rgb = (rng.random((n_points, 3)) * 255).astype(np.uint8)
+    pts = {i: colmap.Point3D(i, xyz[i], rgb[i], 0.5,
+                             np.array([1], np.int32), np.array([0], np.int32))
+           for i in range(n_points)}
+    colmap.write_points3D_binary(pts, os.path.join(sparse, "points3D.bin"))
+    return root
+
 
 RASTER_W, RASTER_H = 64, 48
 RASTER_SCENES = ("basic", "multichunk", "sticky")
@@ -300,7 +345,8 @@ def _render_u8(model, R, T, fovx, width):
 def write_llff_colmap_scene(root: str, seed: int = 3, size: int = 400,
                             n_cams: int = 24, n_gauss: int = 20_000,
                             n_dense: int = 30_000, n_sparse: int = 300,
-                            n_outliers: int = 0, device="cpu"):
+                            n_outliers: int = 0, nir: bool = False,
+                            device="cpu"):
     """The few-shot fixture of `scripts/fsgs_fewshot_bench.py:46`
     (`build_llff_colmap_scene`), with the port's generators and renderer
     (on `device`, black background): a layered cloud of `n_gauss` Gaussians
@@ -315,7 +361,12 @@ def write_llff_colmap_scene(root: str, seed: int = 3, size: int = 400,
     that many stray points to `fused.ply`, as MVS leaves them: uniform in
     direction at 8 to 15 units from the cloud's centre, with random
     colours (none in the JAX script's fixture; FSGS's proximity
-    densification and distance split exist for such points)."""
+    densification and distance split exist for such points). `nir` adds
+    the band mult-dwtgs trains on: each ground-truth Gaussian gets an NIR
+    albedo drawn uniform in [0.05, 0.95] from `seed` + 2, rendered with
+    one channel on a black background into `nir/img_NNN.png` (8-bit
+    grayscale), the layout `preprocessing/greenhouse.py` writes; the other
+    files are the same with or without it."""
     from .data import colmap
     from .data.cameras import Camera
     from .data.ply import store_point_cloud
@@ -352,8 +403,13 @@ def write_llff_colmap_scene(root: str, seed: int = 3, size: int = 400,
     sparse0 = os.path.join(root, "sparse/0")
     imdir = os.path.join(root, "images")
     ddir = os.path.join(root, "depth_maps")
-    for d in (sparse0, imdir, ddir):
+    nir_dir = os.path.join(root, "nir")
+    for d in (sparse0, imdir, ddir) + ((nir_dir,) if nir else ()):
         os.makedirs(d, exist_ok=True)
+    if nir:
+        import torch
+        albedo = torch.as_tensor(np.random.default_rng(seed + 2).uniform(
+            0.05, 0.95, (n_gauss, 1)).astype(np.float32), device=device)
     colmap.write_cameras_binary(
         {1: colmap.Camera(1, "PINHOLE", W, H,
                           np.array([fov2focal(fovx, W), fov2focal(fovy, H),
@@ -364,6 +420,10 @@ def write_llff_colmap_scene(root: str, seed: int = 3, size: int = 400,
         res = render(model, cam, [0.0, 0.0, 0.0])
         image_io.write_png(os.path.join(imdir, cam.image_name),
                            to_u8(res.render))
+        if nir:
+            image_io.write_png(os.path.join(nir_dir, cam.image_name),
+                               to_u8(render(model, cam, [0.0],
+                                            override_color=albedo).render))
         depth = res.expected_depth.cpu().numpy()
         cov = res.alpha.cpu().numpy() > 0.3
         disp = np.where(cov, 1.0 / np.maximum(depth, 1e-3), 0.0)

@@ -22,11 +22,17 @@ trains FSGS (`train/fsgs_loop.py`) with its flags: `--depth_estimator`
 `--method dngaussian` trains DNGaussian (`train/dng_loop.py`) with
 `--near_range` (the spiral near-range prune), `--dataset_type
 llff|dtu|blender`, `--use_neural 0|1` and `--soft_depth_start`, and writes
-`neural_renderer.npz` beside each PLY when `--use_neural 1`. `--seed`
-seeds the host RNGs and the camera order (default 0, the JAX CLI's fixed
-seed). Not ported yet, and raising NotImplementedError: `--method
-mult-dwtgs`, `--data_parallel` other than 1, `--profile`; the checkpoint
-flags apply to the 3dgs / lgdwt loop only, as in the JAX CLI.
+`neural_renderer.npz` beside each PLY when `--use_neural 1`.
+`--method mult-dwtgs` (also `python -m
+sparse_view_3dgs_pack_tpu_torch.train_nir`) trains RGB+NIR
+(`train/nir_loop.py`): the NIR images come from `<source>/nir/<image
+name>` (what `preprocessing/greenhouse.py` writes), each Gaussian gets an
+NIR albedo and the model one gain, `--nir_weight` weighs the NIR loss,
+and the PLY carries `nir_albedo`. `--seed` seeds the host RNGs and the
+camera order (default 0, the JAX CLI's fixed seed). Not ported yet, and
+raising NotImplementedError: `--data_parallel` other than 1,
+`--profile`; the checkpoint flags apply to the 3dgs / lgdwt loop only, as
+in the JAX CLI.
 """
 
 from __future__ import annotations
@@ -43,11 +49,6 @@ from ..utils.general import safe_state
 
 
 def _check_ported(args) -> None:
-    from .recipes import NOT_PORTED
-    if args.method in NOT_PORTED:
-        raise NotImplementedError(
-            f"--method {args.method} is not ported to the PyTorch package "
-            f"yet (ROADMAP Queue 1 item {NOT_PORTED[args.method]})")
     for flag, bad, item in (
             ("--data_parallel", args.data_parallel not in ("1", "off", ""),
              12),
@@ -109,9 +110,10 @@ def main(argv=None):
     write_cfg_args(args.model_path, args)
 
     from .recipes import train_method
-    train_method(known.method, lp.extract(args), op.extract(args),
-                 pp.extract(args), args, device)
+    result = train_method(known.method, lp.extract(args), op.extract(args),
+                          pp.extract(args), args, device)
     print("\nTraining complete.")
+    return result
 
 
 if __name__ == "__main__":

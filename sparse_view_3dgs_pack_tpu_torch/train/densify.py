@@ -8,6 +8,8 @@ rows are concatenated and pruning keeps the surviving rows in order. The
 row order is the JAX one: the appended rows follow Gaussian by Gaussian in
 index order (a clone adds one row, a split adds its two samples), then the
 stable compaction drops the pruned rows — so state compares index by index.
+Every row parameter (`GaussianModel.row_names()`, mult-dwtgs's NIR albedo
+too) follows its source row; `nir_gain` and its moments are never indexed.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ..models.gaussians import PARAM_NAMES, STAT_NAMES, GaussianModel
+from ..models.gaussians import NIR_ALBEDO, STAT_NAMES, GaussianModel
 from ..utils.general import build_rotation, inverse_sigmoid
 from . import optim
 
@@ -94,15 +96,16 @@ def densify_and_prune(model: GaussianModel, adam: optim.AdamState,
     R = build_rotation(params["rotation"][src])
     split_xyz = torch.einsum("nij,nj->ni", R, samples) + params["xyz"][src]
     split_scaling = torch.log(stds[src] / (0.8 * 2))
+    names = model.row_names()
     new_rows = {}
-    for k in PARAM_NAMES:
+    for k in names:
         rows = params[k][src]
         if k == "xyz":
             rows = torch.where(is_split[:, None], split_xyz, rows)
         elif k == "scaling":
             rows = torch.where(is_split[:, None], split_scaling, rows)
         new_rows[k] = torch.cat([params[k], rows])
-    optim.append_zero_rows(adam, src.shape[0])
+    optim.append_zero_rows(adam, names, src.shape[0])
 
     # prune (the appended rows carry no screen-size statistic yet)
     opac = torch.sigmoid(new_rows["opacity"][:, 0])
@@ -117,7 +120,7 @@ def densify_and_prune(model: GaussianModel, adam: optim.AdamState,
     prune[:n] |= split_mask
     keep = ~prune
     model.set_rows({k: v[keep] for k, v in new_rows.items()})
-    optim.select_rows(adam, keep)
+    optim.select_rows(adam, names, keep)
     return DensifyResult(int(clone_mask.sum()), int(split_mask.sum()),
                          int(prune.sum()))
 
@@ -128,9 +131,10 @@ def proximity_densify(model: GaussianModel, adam: optim.AdamState,
     """FSGS proximity densification (JAX `densify.py:166-213`, reference
     `FSGS/scene/gaussian_model.py:405-421`): for each Gaussian in `mask`
     (N,) bool, in index order, append the midpoints to its three
-    neighbours `nn_idx` (N, 3), each with the neighbour's scale and
-    opacity, an identity rotation and zero SH. Their Adam moments are zero
-    and the statistics are cleared. Returns the number of rows appended."""
+    neighbours `nn_idx` (N, 3), each with the neighbour's scale, opacity
+    and NIR albedo, an identity rotation and zero SH. Their Adam moments
+    are zero and the statistics are cleared. Returns the number of rows
+    appended."""
     params = model.params()
     src = torch.nonzero(mask).squeeze(1).repeat_interleave(3)
     nb = nn_idx[src, torch.arange(src.shape[0], device=src.device) % 3]
@@ -143,8 +147,11 @@ def proximity_densify(model: GaussianModel, adam: optim.AdamState,
             "features_rest": torch.zeros_like(params["features_rest"][src]),
             "scaling": params["scaling"][nb], "rotation": rotation,
             "opacity": params["opacity"][nb]}
-    model.set_rows({k: torch.cat([params[k], rows[k]]) for k in PARAM_NAMES})
-    optim.append_zero_rows(adam, n_new)
+    if model.has_nir:
+        rows[NIR_ALBEDO] = params[NIR_ALBEDO][nb]
+    names = model.row_names()
+    model.set_rows({k: torch.cat([params[k], rows[k]]) for k in names})
+    optim.append_zero_rows(adam, names, n_new)
     return n_new
 
 
@@ -165,9 +172,10 @@ def prune_only(model: GaussianModel, adam: optim.AdamState,
     `prune_only`, `densify.py:227-242`; DNGaussian's spiral near-range
     prune, reference `train_llff.py:206-213`). Returns the number pruned."""
     keep = ~mask
+    names = model.row_names()
     stats = {name: getattr(model, name)[keep] for name in STAT_NAMES}
-    model.set_rows({k: v[keep] for k, v in model.params().items()})
+    model.set_rows({k: getattr(model, k)[keep] for k in names})
     for name, value in stats.items():
         setattr(model, name, value)
-    optim.select_rows(adam, keep)
+    optim.select_rows(adam, names, keep)
     return int(mask.sum())

@@ -64,6 +64,8 @@ def make_lr_schedules(opt_args, spatial_lr_scale: float) -> dict:
         "opacity": opt_args.opacity_lr,
         "scaling": opt_args.scaling_lr,
         "rotation": opt_args.rotation_lr,
+        "nir_albedo": getattr(opt_args, "nir_albedo_lr", 0.0025),
+        "nir_gain": getattr(opt_args, "nir_gain_lr", 0.001),
     }
     scheds = {"xyz": xyz_sched}
     for k, lr in consts.items():
@@ -132,19 +134,22 @@ def exposure_adam_update(exposure: torch.Tensor, grad: torch.Tensor,
     state.m, state.v = m, v
 
 
-def append_zero_rows(state: AdamState, n_new: int) -> None:
-    """Moments of `n_new` appended rows start at zero (`zero_adam_slots`)."""
+def append_zero_rows(state: AdamState, names, n_new: int) -> None:
+    """The moments of the row parameters `names` get `n_new` appended rows
+    that start at zero (`zero_adam_slots`); the others stay as they are
+    (`nir_gain`'s, as JAX's `a.shape[0] == cap` guard leaves them)."""
     for d in (state.m, state.v):
-        for k, a in d.items():
+        for k in names:
+            a = d[k]
             d[k] = torch.cat([a, a.new_zeros((n_new,) + a.shape[1:])])
 
 
-def select_rows(state: AdamState, keep: torch.Tensor) -> None:
-    """Keep the rows where `keep` is True, in order (`permute_adam` of the
-    stable compaction)."""
+def select_rows(state: AdamState, names, keep: torch.Tensor) -> None:
+    """Keep the rows where `keep` is True, in order, of the moments of the
+    row parameters `names` (`permute_adam` of the stable compaction)."""
     for d in (state.m, state.v):
-        for k, a in d.items():
-            d[k] = a[keep]
+        for k in names:
+            d[k] = d[k][keep]
 
 
 def zero_param(state: AdamState, name: str) -> None:

@@ -2,8 +2,8 @@
 
 Counterpart of `sparse_view_3dgs_pack_tpu/train/recipes.py`. Vanilla 3DGS
 is LGDWT with the DWT terms off; both run `simple_train`. FSGS runs
-`fsgs_loop.train_fsgs`, DNGaussian `dng_loop.train_dngaussian`. mult-dwtgs
-is not ported yet and raises, naming its ROADMAP item.
+`fsgs_loop.train_fsgs`, DNGaussian `dng_loop.train_dngaussian`, mult-dwtgs
+`nir_loop.train_nir` (whose scene `train_method` returns, as JAX's does).
 """
 
 from __future__ import annotations
@@ -12,8 +12,6 @@ import time
 
 from ..scene import Scene
 from .loop import simple_train
-
-NOT_PORTED = {"mult-dwtgs": 10}
 
 
 def _progress_printer(total):
@@ -33,12 +31,8 @@ def _progress_printer(total):
     return cb
 
 
-def train_method(method: str, dataset, opt, pipe, args, device) -> None:
-    if method in NOT_PORTED:
-        raise NotImplementedError(
-            f"--method {method} is not ported to the PyTorch package yet "
-            f"(ROADMAP Queue 1 item {NOT_PORTED[method]})")
-    if method not in ("3dgs", "lgdwt", "fsgs", "dngaussian"):
+def train_method(method: str, dataset, opt, pipe, args, device):
+    if method not in ("3dgs", "lgdwt", "fsgs", "dngaussian", "mult-dwtgs"):
         raise ValueError(method)
     # arm the debug snapshot from --debug_from (`train/debug.py`)
     pipe.debug_from = getattr(args, "debug_from", -1)
@@ -50,6 +44,9 @@ def train_method(method: str, dataset, opt, pipe, args, device) -> None:
         pipe.use_confidence = getattr(args, "use_confidence", False)
         train_fsgs(dataset, opt, pipe, args, device)
         return
+    if method == "mult-dwtgs":
+        from .nir_loop import train_nir
+        return train_nir(dataset, opt, pipe, args, device)
     if method == "dngaussian":
         from .dng_loop import train_dngaussian
         train_dngaussian(dataset, opt, pipe, args, device,

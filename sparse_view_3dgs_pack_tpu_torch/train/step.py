@@ -45,6 +45,7 @@ class CameraBank(NamedTuple):
     invdepth: torch.Tensor     # (N, H, W)
     depth_mask: torch.Tensor   # (N, H, W)
     has_depth: torch.Tensor    # (N,) float32
+    nir: torch.Tensor          # (N, H, W), or (N, 1, 1) zeros if no view has one
 
     @classmethod
     def from_cameras(cls, cams, channels: int = 3, device="cuda"):
@@ -56,6 +57,8 @@ class CameraBank(NamedTuple):
         inv = np.zeros((n, H, W), np.float32)
         dm = np.zeros((n, H, W), np.float32)
         hd = np.zeros((n,), np.float32)
+        any_nir = any(c.nir is not None for c in cams)
+        nir = np.zeros((n, H, W) if any_nir else (n, 1, 1), np.float32)
         vm = np.zeros((n, 4, 4), np.float32)
         fp = np.zeros((n, 4, 4), np.float32)
         cc = np.zeros((n, 3), np.float32)
@@ -73,9 +76,11 @@ class CameraBank(NamedTuple):
                 inv[i] = c.invdepthmap
                 dm[i] = c.depth_mask if c.depth_mask is not None else 1.0
                 hd[i] = 1.0
+            if c.nir is not None:
+                nir[i] = c.nir
         t = lambda a: torch.as_tensor(a, device=device)
         return cls(t(vm), t(fp), t(cc), tx, ty, t(gt), t(am), t(inv), t(dm),
-                   t(hd))
+                   t(hd), t(nir))
 
     def camera(self, idx: int) -> CameraParams:
         return CameraParams(viewmat=self.viewmat[idx],
@@ -116,49 +121,57 @@ def sh_band_mask(active_degree: int, max_degree: int, device):
     return (band <= active_degree).to(torch.float32)[:, None]
 
 
+def photometric_losses(image, gt, dwt_running_mean: torch.Tensor,
+                       cfg: StepConfig):
+    """L1 + SSIM + the DWT subbands + the ELF-patch DWT of one masked
+    render (`step.py:155-190`; the RGB pass of mult-dwtgs's step too).
+    Returns (loss, metrics, new_running); the DWT scale is the running
+    mean of base/dwt with its stop-gradients (`step.py:170-175`)."""
+    ll1 = l1_loss(image, gt)
+    ssim_value = ssim(image, gt)
+    base = (1.0 - cfg.lambda_dssim) * ll1 + cfg.lambda_dssim * (
+        1.0 - ssim_value)
+    metrics = {"l1": ll1.detach(), "ssim": ssim_value.detach()}
+
+    loss = base
+    new_running = dwt_running_mean
+    if cfg.dwt_enable:
+        weights = {k + "_weight": w
+                   for k, w in zip(_DWT_KEYS, cfg.dwt_weights)}
+        dwt_loss, _ = dwt_subband_loss(image, gt, weights)
+        ratio = base.detach() / (dwt_loss.detach() + 1e-8)
+        new_running = 0.95 * dwt_running_mean + 0.05 * ratio
+        dwt_scale = torch.clamp(new_running, 0.1, 10.0)
+        loss = loss + dwt_scale.detach() * dwt_loss
+        metrics["dwt"] = dwt_loss.detach()
+        metrics["dwt_scale"] = dwt_scale.detach()
+
+    if cfg.patch_dwt_enable:
+        elf = compute_elf_map(gt)
+        patch_loss = compute_patch_dwt_loss(
+            image, gt, elf, patch_size=cfg.patch_size,
+            percentile=cfg.patch_percentile,
+            lh1_weight=cfg.patch_dwt_lh1_weight,
+            hl1_weight=cfg.patch_dwt_hl1_weight)
+        loss = loss + cfg.patch_dwt_weight * patch_loss
+        metrics["patch_dwt"] = patch_loss.detach()
+    return loss, metrics, new_running
+
+
 def view_losses(p: dict, exposure_mat, cam, gt, alpha_mask, mono_invdepth,
                 depth_mask, has_depth, bg_color, depth_weight: float,
                 dwt_running_mean: torch.Tensor, cfg: StepConfig):
-    """The full per-view training loss (`step.py:140-194`). `p` already
-    carries the SH band mask. Returns (loss, metrics, new_running, render
-    result); the DWT scale is the running mean of base/dwt with its
-    stop-gradients (`step.py:170-175`)."""
+    """The full per-view training loss (`step.py:140-194`): the
+    photometric losses plus depth-L1. `p` already carries the SH band
+    mask. Returns (loss, metrics, new_running, render result)."""
     res = render_core(
         p, exposure_mat, cam, cfg.width, cfg.height, bg_color,
         sh_degree_active=cfg.sh_degree, antialiasing=cfg.antialiasing,
         use_trained_exp=cfg.train_test_exp, inference=False)
     with record_function("step/losses"):
-        image = res.render * alpha_mask
-        ll1 = l1_loss(image, gt)
-        ssim_value = ssim(image, gt)
-        base = (1.0 - cfg.lambda_dssim) * ll1 + cfg.lambda_dssim * (
-            1.0 - ssim_value)
-        metrics = {"l1": ll1.detach(), "ssim": ssim_value.detach(),
-                   "n_pairs": res.n_pairs}
-
-        loss = base
-        new_running = dwt_running_mean
-        if cfg.dwt_enable:
-            weights = {k + "_weight": w
-                       for k, w in zip(_DWT_KEYS, cfg.dwt_weights)}
-            dwt_loss, _ = dwt_subband_loss(image, gt, weights)
-            ratio = base.detach() / (dwt_loss.detach() + 1e-8)
-            new_running = 0.95 * dwt_running_mean + 0.05 * ratio
-            dwt_scale = torch.clamp(new_running, 0.1, 10.0)
-            loss = loss + dwt_scale.detach() * dwt_loss
-            metrics["dwt"] = dwt_loss.detach()
-            metrics["dwt_scale"] = dwt_scale.detach()
-
-        if cfg.patch_dwt_enable:
-            elf = compute_elf_map(gt)
-            patch_loss = compute_patch_dwt_loss(
-                image, gt, elf, patch_size=cfg.patch_size,
-                percentile=cfg.patch_percentile,
-                lh1_weight=cfg.patch_dwt_lh1_weight,
-                hl1_weight=cfg.patch_dwt_hl1_weight)
-            loss = loss + cfg.patch_dwt_weight * patch_loss
-            metrics["patch_dwt"] = patch_loss.detach()
-
+        loss, metrics, new_running = photometric_losses(
+            res.render * alpha_mask, gt, dwt_running_mean, cfg)
+        metrics["n_pairs"] = res.n_pairs
         depth_term = depth_l1_loss(res.depth, mono_invdepth, depth_mask)
         loss = loss + depth_weight * has_depth * depth_term
         metrics["depth_l1"] = (depth_term * has_depth).detach()
