@@ -115,7 +115,29 @@ Phases, one line each or more, any failure exits non-zero:
                forward's (warp, pair) work as in phase 4; timings
   8 cli        render + metrics CLIs on an 800x800 Blender-layout scene whose
                ground truth is the plain version's render
-Each path (train, probes, render) is driven with the kernels' launch
+  viewer       the reference's SIBR transcript replayed through the port's
+               bridge with CUDA frames, byte for byte; the wire's cost for a
+               1920x1080 frame (no render), as the bridge writes it and with
+               TCP_NODELAY on the server's socket; then phase 6's lgdwt
+               training through the train CLI in this process with the
+               viewer on --port 0: halfway through, a client asks for 20
+               1920x1080 frames with train=True (one per iteration), 10
+               with train=False and keep_alive (training held: the
+               iteration does not move) and one with train=True; each reply
+               exactly the frame and the verify string, one raster_fwd
+               launch per frame beside the training's, the pause's first
+               frame within 1 uint8 level of the plain version's render of
+               the model it was served from, +5 dB test PSNR; per frame the
+               client's request-to-reply ms and the server's render, pack,
+               device-to-host copy and send
+  harness      `python -m sparse_view_3dgs_pack_tpu_torch.benchmark.cli
+               runall` on the port's benchmark/config.yaml (3dgs, lgdwt,
+               fsgs, dngaussian) with the fsgs phase's fixture as its scene
+               and 300 iterations (grid), all 12 stages on the card: each
+               exits 0, summary.csv holds 4 scored rows, the LaTeX tables
+               exist, each run's metrics-stage and train-log PSNR are
+               finite; `--resume` then skips all 4 runs in under 10 s
+Each path (train, probes, render, viewer) is driven with the kernels' launch
 counts set to 0 just before it and read just after; launches made to
 compare a kernel with its plain version are not counted. The line before
 the last is a JSON summary of the kernels, one entry per (kernel, path);
@@ -173,6 +195,11 @@ TRAIN_W = TRAIN_H = 800
 TRAIN_N = 100_000
 WARMUP_STEPS, TIMED_STEPS = 3, 20
 CLI_W, CLI_ITERS, CLI_INIT_POINTS = 400, 600, 1000
+# the viewer phase: frames at the size a SIBR window asks for, served from
+# phase 6's training run; the harness phase: the port's default config on
+# the fsgs phase's fixture, iterations cut to HARNESS_ITERS
+VIEWER_W, VIEWER_H, VIEWER_LIVE, VIEWER_PAUSED = 1920, 1080, 20, 10
+HARNESS_ITERS = 300
 # the fsgs phase: `scripts/fsgs_fewshot_bench.py`'s fixture at full width
 # (400x400, 24 cameras, 3 training views, 20k ground-truth Gaussians, a 30k
 # dense init) with 30 stray points in the init; a shortened schedule in
@@ -1081,8 +1108,8 @@ def phase_train(device):
 
 def phase_train_cli(work: str, device):
     """The training CLI on a Blender scene rendered from a known cloud, then
-    the render and metrics CLIs on its output. Returns the scene directory
-    and the training run's it/s."""
+    the render and metrics CLIs on its output. Returns the scene directory,
+    the training run's it/s and the test PSNR at iteration 0."""
     from sparse_view_3dgs_pack_tpu_torch import testing
     from sparse_view_3dgs_pack_tpu_torch.data import readers
     from sparse_view_3dgs_pack_tpu_torch.data.camera_utils import \
@@ -1150,7 +1177,7 @@ def phase_train_cli(work: str, device):
                              f"dB, less than 5")
     if n_end == CLI_INIT_POINTS:
         raise AssertionError("the point count did not change")
-    return scene, ips
+    return scene, ips, psnr0
 
 
 def _its_per_s(stdout: str) -> float:
@@ -2490,6 +2517,493 @@ def phase_cli(ply: str, work: str) -> None:
         raise AssertionError(f"CLI render vs plain version: {res}")
 
 
+def _recv_exact(sock, n: int) -> bytes:
+    buf = bytearray()
+    while len(buf) < n:
+        chunk = sock.recv(min(n - len(buf), 1 << 20))
+        if not chunk:
+            raise AssertionError(f"the viewer's reply ended after {len(buf)} "
+                                 f"of {n} bytes")
+        buf += chunk
+    return bytes(buf)
+
+
+def _close_viewer() -> None:
+    """Close and forget the viewer bridge's listener and connection."""
+    from sparse_view_3dgs_pack_tpu_torch.viewer import network_gui as gui
+    for sock in (gui.conn, gui.listener):
+        if sock is not None:
+            sock.close()
+    gui.listener = gui.conn = None
+
+def _viewer_transcript(device) -> None:
+    """The reference's recorded SIBR session replayed through the port's
+    bridge, each frame a CUDA tensor packed on the card: the reply stream
+    byte for byte."""
+    import socket
+    import threading
+    from sparse_view_3dgs_pack_tpu_torch.viewer import network_gui as gui
+    with open(os.path.join(REPO, "tests", "fixtures",
+                           "sibr_transcript.json")) as f:
+        fix = json.load(f)
+    msgs = [bytes.fromhex(h) for h in fix["client_messages_hex"]]
+    expected = bytes.fromhex(fix["server_reply_hex"])
+    served, chunks = [], []
+
+    def render_fn(cam, scaling_modifier):
+        x = torch.arange(cam.width, device=device)[None, :, None]
+        y = torch.arange(cam.height, device=device)[:, None, None]
+        c = torch.arange(3, device=device)[None, None, :]
+        served.append(cam)
+        return ((x * 7 + y * 13 + c * 29) % 255 + 0.5) / 255.0
+
+    def client():
+        with socket.create_connection(("127.0.0.1", port), timeout=60) as s:
+            for m in msgs:
+                s.sendall(m)
+            s.shutdown(socket.SHUT_WR)
+            while chunk := s.recv(65536):
+                chunks.append(chunk)
+
+    gui.init("127.0.0.1", 0)
+    try:
+        port = gui.listener.getsockname()[1]
+        t = threading.Thread(target=client, daemon=True)
+        t.start()
+        end = time.time() + 60
+        while len(served) < len(fix["minicams"]) and time.time() < end:
+            gui.serve_once(render_fn, fix["verify"])
+            time.sleep(0.005)
+    finally:
+        _close_viewer()
+    t.join(timeout=60)
+    got = b"".join(chunks)
+    log("viewer", f"transcript replay: {len(served)} frames (CUDA tensors), "
+                  f"{len(got)} reply bytes, byte-equal to the reference's: "
+                  f"{got == expected}")
+    if t.is_alive() or got != expected:
+        raise AssertionError("the transcript replay differs from the "
+                             "reference's reply stream")
+
+
+def _viewer_socket(device, n: int = 10) -> None:
+    """What the wire costs a 1920x1080 frame with no render: `serve_once`
+    replying to n requests with one CUDA frame, the client timing each
+    request to its reply; once as the bridge runs (three writes: the frame,
+    the length, the verify string) and once with TCP_NODELAY set on the
+    server's socket, to see whether a small write waits for an ACK."""
+    import socket
+    import threading
+    from sparse_view_3dgs_pack_tpu_torch import testing
+    from sparse_view_3dgs_pack_tpu_torch.viewer import network_gui as gui
+    W, H = VIEWER_W, VIEWER_H
+    cam = testing.make_orbit_cameras(1, width=W, height_px=H)[0]
+    msg = testing.viewer_message(cam, train=False, keep_alive=True)
+    last = testing.viewer_message(cam, train=True)
+    frame = torch.full((H, W, 3), 0.5, device=device)
+    ms = {}
+    for nodelay in (False, True):
+        times, errors = [], []
+
+        def client():
+            try:
+                with socket.create_connection(("127.0.0.1", port),
+                                              timeout=60) as s:
+                    for i in range(n):
+                        t0 = time.perf_counter()
+                        s.sendall(last if i == n - 1 else msg)
+                        _recv_exact(s, W * H * 3)
+                        k = int.from_bytes(_recv_exact(s, 4), "little")
+                        _recv_exact(s, k)
+                        times.append((time.perf_counter() - t0) * 1e3)
+            except Exception as e:     # re-raised in the main thread
+                errors.append(e)
+
+        gui.init("127.0.0.1", 0)
+        try:
+            port = gui.listener.getsockname()[1]
+            t = threading.Thread(target=client, daemon=True)
+            t.start()
+            end = time.time() + 60
+            while gui.conn is None and time.time() < end:
+                gui.try_connect()
+            gui.conn.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY,
+                                int(nodelay))
+            gui.serve_once(lambda c, s: frame, "verify")
+            t.join(timeout=60)
+        finally:
+            _close_viewer()
+        if errors or len(times) != n:
+            raise AssertionError(f"viewer socket: {errors}, {len(times)} "
+                                 f"replies")
+        ms[nodelay] = times
+    log("viewer", f"wire only, {n} {W}x{H} frames from one CUDA tensor "
+                  f"(pack, copy, three writes): request-to-reply "
+                  f"{_spread(ms[False])}; with TCP_NODELAY "
+                  f"{_spread(ms[True])}")
+
+
+def _spread(xs) -> str:
+    return (f"median {float(np.median(xs)):.3f} ms (min {min(xs):.3f}, max "
+            f"{max(xs):.3f})")
+
+
+def phase_viewer(work: str, scene: str, psnr0: float, device) -> dict:
+    """Phase 6's lgdwt training through the train CLI (in this process,
+    launches counted) with the SIBR viewer listening; a client thread asks
+    for 1920x1080 frames halfway through: VIEWER_LIVE with train=True, one
+    served per iteration, then VIEWER_PAUSED with train=False and
+    keep_alive (training held) and one with train=True. Gates: each reply
+    exactly the frame and its verify string, the iteration held during the
+    pause, one raster_fwd launch per frame beside the training's, one
+    frame within 1 uint8 level of the plain version's render, +5 dB test
+    PSNR. Per frame: the client's request-to-reply ms and the server's
+    render, pack, device-to-host copy and send. Returns the viewer path's
+    raster_fwd entry at the frame's own shape."""
+    import contextlib
+    import copy
+    import io
+    import math
+    import runpy
+    import socket
+    import threading
+    from sparse_view_3dgs_pack_tpu_torch import testing
+    from sparse_view_3dgs_pack_tpu_torch.ops import raster
+    from sparse_view_3dgs_pack_tpu_torch.ops.binning import bin_gaussians
+    from sparse_view_3dgs_pack_tpu_torch.renderer import (INFER_TILE_X,
+                                                          INFER_TILE_Y)
+    from sparse_view_3dgs_pack_tpu_torch.train import loop
+    from sparse_view_3dgs_pack_tpu_torch.viewer import network_gui as gui
+    _viewer_transcript(device)
+    _viewer_socket(device)
+
+    W, H = VIEWER_W, VIEWER_H
+    cams = testing.make_orbit_cameras(VIEWER_LIVE, radius=6.0, height=1.5,
+                                      fovx=math.radians(50), width=W,
+                                      height_px=H)
+    flags = ([True] * VIEWER_LIVE + [False] * VIEWER_PAUSED + [True])
+    msgs = [testing.viewer_message(cams[i % len(cams)], train=f)
+            for i, f in enumerate(flags)]
+    check = VIEWER_LIVE                   # the first frame of the pause
+    fwd = raster.rasterize_forward
+    frames, state, cur = [], {}, {}
+    orig = {k: getattr(gui, k) for k in ("receive", "pack_u8",
+                                         "render_to_bytes", "send",
+                                         "serve_once")}
+    serve_viewer = loop.Trainer.serve_viewer
+
+    def receive():
+        out = orig["receive"]()
+        cur.clear()
+        cur["cam"] = out[0]
+        return out
+
+    def serve_once(render_fn, source_path):
+        def timed_render(cam, scaling_modifier):
+            trainer, n0 = state["trainer"], fwd.launches
+            t0 = time.perf_counter()
+            image = render_fn(cam, scaling_modifier)
+            torch.cuda.synchronize()
+            cur["render"] = (time.perf_counter() - t0) * 1e3
+            cur["launches"] = fwd.launches - n0
+            cur["iteration"] = trainer.iteration
+            if len(frames) == check:
+                cur["model"] = copy.deepcopy(trainer.model)
+                cur["sh"] = trainer.active_sh_degree
+                cur["bg"] = trainer.background.clone()
+            return image
+        return orig["serve_once"](timed_render, source_path)
+
+    def pack_u8(image):
+        t0 = time.perf_counter()
+        out = orig["pack_u8"](image)
+        torch.cuda.synchronize()
+        cur["pack"] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    def render_to_bytes(image):
+        t0 = time.perf_counter()
+        out = orig["render_to_bytes"](image)
+        cur["copy"] = (time.perf_counter() - t0) * 1e3 - cur["pack"]
+        if len(frames) == check:
+            cur["bytes"] = out
+        return out
+
+    def send(message_bytes, verify):
+        t0 = time.perf_counter()
+        orig["send"](message_bytes, verify)
+        if message_bytes is not None:
+            cur["send"] = (time.perf_counter() - t0) * 1e3
+            frames.append(dict(cur))
+
+    def recording_serve_viewer(self):
+        state["trainer"] = self
+        return serve_viewer(self)
+
+    client_ms, replies, errors = [], [], []
+
+    def client():
+        try:
+            end = time.time() + 300
+            while ("trainer" not in state or state["trainer"].iteration
+                   < CLI_ITERS // 2) and time.time() < end:
+                time.sleep(0.001)
+            port = gui.listener.getsockname()[1]
+            with socket.create_connection(("127.0.0.1", port),
+                                          timeout=120) as s:
+                for msg in msgs:
+                    t0 = time.perf_counter()
+                    s.sendall(msg)
+                    image = _recv_exact(s, W * H * 3)
+                    n = int.from_bytes(_recv_exact(s, 4), "little")
+                    verify = _recv_exact(s, n).decode("ascii")
+                    client_ms.append((time.perf_counter() - t0) * 1e3)
+                    replies.append((len(image), verify))
+                    if len(replies) == check + 1:
+                        state["client_bytes"] = image
+                s.shutdown(socket.SHUT_WR)
+                state["trailing"] = s.recv(1)    # b"" once the server hangs up
+        except Exception as e:     # re-raised in the main thread
+            errors.append(e)
+
+    out = os.path.join(work, "viewer_out")
+    argv = ["-s", scene, "-m", out, "--method", "lgdwt", "--eval",
+            "--iterations", str(CLI_ITERS), "--densify_from_iter", "100",
+            "--densification_interval", "50", "--densify_until_iter", "450",
+            "--opacity_reset_interval", "250", "--test_iterations",
+            str(CLI_ITERS), "--ip", "127.0.0.1", "--port", "0"]
+    buf = io.StringIO()
+    saved = sys.argv
+    for k, fn in dict(receive=receive, pack_u8=pack_u8,
+                      render_to_bytes=render_to_bytes, send=send,
+                      serve_once=serve_once).items():
+        setattr(gui, k, fn)
+    loop.Trainer.serve_viewer = recording_serve_viewer
+    t = threading.Thread(target=client, daemon=True)
+    t.start()
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        sys.argv = ["python -m sparse_view_3dgs_pack_tpu_torch.train", *argv]
+        with contextlib.redirect_stdout(buf):
+            runpy.run_module("sparse_view_3dgs_pack_tpu_torch.train",
+                             run_name="__main__")
+    finally:
+        sys.argv = saved
+        for k, fn in orig.items():
+            setattr(gui, k, fn)
+        loop.Trainer.serve_viewer = serve_viewer
+        _close_viewer()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    used = read_counts()
+    t.join(timeout=60)
+    if errors:
+        raise AssertionError(f"viewer client: {errors[0]!r}")
+    text = buf.getvalue()
+    for line in text.splitlines():
+        if "Evaluating" in line or "Training took" in line \
+                or "Connected" in line:
+            log("viewer", line.strip())
+    psnr = float(re.findall(r"Evaluating test: L1 \S+ PSNR ([0-9.]+)",
+                            text)[-1])
+
+    fails = []
+    n = len(flags)
+    verify = os.path.abspath(scene)
+    if len(frames) != n or len(replies) != n:
+        fails.append(f"{len(frames)} frames served, {len(replies)} replies "
+                     f"read, for {n} requests")
+    bad = [r for r in replies if r != (W * H * 3, verify)]
+    if bad or state.get("trailing") != b"":
+        fails.append(f"replies not exactly {W * H * 3} bytes + {verify!r}: "
+                     f"{bad[:2]}, trailing {state.get('trailing')!r}")
+    its = [f["iteration"] for f in frames]
+    k = its[0] if its else 0
+    if its != [k + i for i in range(VIEWER_LIVE)] + [k + VIEWER_LIVE] * (
+            VIEWER_PAUSED + 1):
+        fails.append(f"iterations at the frames: {its}")
+    per_frame = [f["launches"] for f in frames]
+    outside = used["raster_fwd"] - sum(per_frame)
+    if set(per_frame) != {1} or used["raster_bwd"] != CLI_ITERS \
+            or outside < CLI_ITERS:
+        fails.append(f"raster_fwd launches per frame {per_frame}, "
+                     f"{outside} outside the frames, raster_bwd "
+                     f"{used['raster_bwd']} for {CLI_ITERS} iterations")
+    if not psnr >= psnr0 + 5.0:
+        fails.append(f"test PSNR rose by {psnr - psnr0:.3f} dB, less than 5")
+    log("viewer", f"{CLI_ITERS} iterations with the viewer in {secs:.1f} s "
+                  f"with set-up; {len(frames)} frames {W}x{H} served at "
+                  f"iterations {its[0] if its else None}..."
+                  f"{its[-1] if its else None}; launches raster_fwd "
+                  f"{used['raster_fwd']} ({sum(per_frame)} in frames, "
+                  f"{outside - used['raster_bwd']} eval renders), raster_bwd "
+                  f"{used['raster_bwd']}, segment_sum "
+                  f"{used['segment_sum']}; test PSNR {psnr0:.3f} -> "
+                  f"{psnr:.3f} dB")
+    if fails:
+        raise AssertionError("viewer: " + "; ".join(fails))
+
+    for label, sel in (("live (train=True)", slice(0, VIEWER_LIVE)),
+                       ("paused (train=False, keep_alive)",
+                        slice(VIEWER_LIVE, n))):
+        fs, cms = frames[sel], client_ms[sel]
+        log("viewer", f"{label}, {len(fs)} frames: request-to-reply "
+                      f"(client) {_spread(cms)}; server: render "
+                      f"{_spread([f['render'] for f in fs])}, pack "
+                      f"{_spread([f['pack'] for f in fs])}, device-to-host "
+                      f"copy {_spread([f['copy'] for f in fs])}, send "
+                      f"{_spread([f['send'] for f in fs])}")
+    for i, (f, ms) in enumerate(zip(frames, client_ms)):
+        log("viewer", f"frame {i} (iteration {f['iteration']}): request-to-"
+                      f"reply {ms:.3f} ms; render {f['render']:.3f}, pack "
+                      f"{f['pack']:.3f}, copy {f['copy']:.3f}, send "
+                      f"{f['send']:.3f}")
+
+    # the pause's first frame against the plain version's render of the
+    # model it was served from, at its camera
+    ref = frames[check]
+    model, cam = ref["model"], ref["cam"]
+    if state.get("client_bytes") != ref["bytes"]:
+        raise AssertionError("the client read other bytes than were sent")
+    proj = _project_model(model, cam, ref["sh"])
+    ba = bin_gaussians(proj.means2d, proj.depths, proj.rect_radii, W, H,
+                       INFER_TILE_X, INFER_TILE_Y)
+    args = _raster_args(proj, ba, ref["bg"]) + (W, H, INFER_TILE_X,
+                                                INFER_TILE_Y)
+    kern = raster.rasterize_forward(*args)
+    plain = raster.rasterize_forward_torch(*args)
+    plain_u8 = np.frombuffer(gui.render_to_bytes(
+        torch.clamp(plain.color, 0.0, 1.0)), np.uint8).astype(np.int16)
+    served = np.frombuffer(ref["bytes"], np.uint8).astype(np.int16)
+    levels = int(np.abs(served - plain_u8).max())
+    errs = max_errs(kern, plain)
+    log("viewer", f"frame {check} ({model.num_points} Gaussians, "
+                  f"{ba.total_pairs} pairs) against the plain version's "
+                  f"render: {levels} uint8 levels at most, "
+                  f"{int((served != plain_u8).sum())} of {served.size} "
+                  f"bytes differ; kernel vs plain "
+                  + " ".join(f"{k}={v:.3g}" for k, v in errs.items()))
+    if levels > 1 or not (errs["color"] <= FULL_TOL
+                          and errs["alpha"] <= FULL_TOL):
+        raise AssertionError(f"viewer frame vs plain: {levels} levels, "
+                             f"{errs}")
+    t_kernel = cuda_ms(lambda: raster.rasterize_forward(*args), 20)
+    t_plain = cuda_ms(lambda: raster.rasterize_forward_torch(*args), 3)
+    nc = raster.rasterize_forward(*args[:-4], W, H, INFER_TILE_X,
+                                  INFER_TILE_Y, True).n_contrib
+    work_ = _work(proj, ba, nc, W, H, INFER_TILE_X, INFER_TILE_Y,
+                  raster.fwd_pixels(False))
+    fb = _fwd_bound(proj.means2d.shape[0], 3, ba.total_pairs,
+                    ba.tile_counts.shape[0], W, H, work_, False)
+    log("viewer", f"frame {check} raster kernel {t_kernel:.3f} ms (bound "
+                  f"{fb[0]:.4f} ms by {fb[1]}), plain {t_plain:.3f} ms; "
+                  f"{work_.fwd_line()}")
+    return {"raster_fwd": dict(
+        launches=sum(per_frame),
+        max_abs_err=max(errs["color"], errs["alpha"], errs["invdepth"]),
+        ms=t_kernel, plain_ms=t_plain, bound_ms=fb[0], bound_by=fb[1],
+        library_ms=None)}
+
+
+def phase_harness(work: str, scene: str) -> None:
+    """`python -m sparse_view_3dgs_pack_tpu_torch.benchmark.cli runall` on
+    the port's `benchmark/config.yaml` with `scenes:` set to the fsgs
+    phase's fixture and HARNESS_ITERS iterations through `grid`
+    (`overrides` turn `quiet` off so that each train log carries its
+    PSNR); every stage on the card. Gates: 12 stages exit 0, summary.csv's
+    4 rows scored, the LaTeX tables, each run's metrics-stage PSNR and its
+    train log's last PSNR finite, and `--resume` spawning nothing."""
+    import csv
+    import math
+    import yaml
+    from sparse_view_3dgs_pack_tpu_torch.benchmark import benchmark as bm
+    with open(bm.DEFAULT_CONFIG) as f:
+        cfg = yaml.safe_load(f)
+    name = "llff400"
+    cfg["scenes"] = [{"name": name, "source_path": scene}]
+    cfg["defaults"]["out_root"] = os.path.join(work, "bench_runs")
+    n = HARNESS_ITERS
+    cfg["grid"] = {"iterations": [n], "test_iterations": [[n]],
+                   "save_iterations": [[n]]}
+    cfg["overrides"] = {m["name"]: {name: {"args": {"quiet": False}}}
+                        for m in cfg["models"]}
+    path = os.path.join(work, "harness.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    out = os.path.join(work, "harness_out")
+    cmd = [sys.executable, "-m", "sparse_view_3dgs_pack_tpu_torch.benchmark"
+           ".cli", "runall", "-c", path, "--out_dir", out]
+
+    # the least each of the 12 stage processes pays before its own work:
+    # the interpreter, torch and the renderer imported, a CUDA context
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, "-c", (
+        "import torch, sparse_view_3dgs_pack_tpu_torch.renderer; "
+        "torch.zeros(1, device='cuda'); torch.cuda.synchronize()")],
+        cwd=REPO, check=True)
+    start_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True)
+    secs = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"harness failed (rc={proc.returncode}):\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    stages = re.findall(r"\[(Train|Render|Metrics)\] Finished (\S+) in "
+                        r"([0-9.]+)s, exit=(-?\d+)", proc.stdout)
+    fails = []
+    if len(stages) != 12 or any(code != "0" for *_, code in stages):
+        fails.append(f"stages: {stages}")
+    with open(os.path.join(out, "summary.csv")) as f:
+        rows = list(csv.DictReader(f))
+    if len(rows) != 4 or any(not r[k] for r in rows
+                             for k in ("psnr", "ssim", "lpips_backend")):
+        fails.append(f"summary.csv: {rows}")
+    if not os.path.exists(os.path.join(out, "tables", "combined.tex")):
+        fails.append("no tables/combined.tex")
+    for r in rows:
+        secs_by = {label: float(s) for label, tag, s, _ in stages
+                   if tag == r["tag"]}
+        with open(os.path.join(out, r["tag"], "logs", "train.log")) as f:
+            logged = re.findall(r"PSNR[:=]?\s*([0-9.]+)", f.read())
+        with open(os.path.join(out, r["tag"], "result.json")) as f:
+            res = json.load(f)
+        train_psnr = float(logged[-1]) if logged else float("nan")
+        total = sum(secs_by.values())
+        log("harness", f"{r['tag']}: {total:.2f} s (train "
+                       f"{secs_by.get('Train', 0):.2f}, render "
+                       f"{secs_by.get('Render', 0):.2f}, metrics "
+                       f"{secs_by.get('Metrics', 0):.2f}); PSNR "
+                       f"{res.get('psnr')} (metrics stage; train log's "
+                       f"last {train_psnr}), SSIM {res.get('ssim')}, "
+                       f"{r['lpips_backend']}; start-up at least "
+                       f"{3 * start_s:.2f} s = {100 * 3 * start_s / total:.0f}"
+                       f"% of the run")
+        if not (math.isfinite(res.get("psnr") or float("nan"))
+                and math.isfinite(train_psnr)):
+            fails.append(f"{r['tag']}: PSNR {res.get('psnr')}, train log "
+                         f"{train_psnr}")
+    if fails:
+        raise AssertionError("harness: " + "; ".join(fails))
+
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd + ["--resume"], cwd=REPO, capture_output=True,
+                          text=True)
+    resume_s = time.perf_counter() - t0
+    skipped = proc.stdout.count("[Resume] Skipping completed")
+    log("harness", f"runall of 4 models x {n} iterations on the {FSGS_W}x"
+                   f"{FSGS_W} fixture: {secs:.1f} s, 12 stages exit 0; one "
+                   f"bare start-up (interpreter, torch, CUDA context) "
+                   f"{start_s:.2f} s; --resume: {skipped} runs skipped in "
+                   f"{resume_s:.2f} s")
+    if proc.returncode != 0 or skipped != 4 or "Running for" in proc.stdout \
+            or not resume_s < 10.0:
+        raise AssertionError(f"--resume: rc {proc.returncode}, {skipped} "
+                             f"skipped in {resume_s:.2f} s:\n"
+                             f"{proc.stdout[-2000:]}")
+
+
 def main() -> None:
     t_start = time.perf_counter()
     card = phase_device()
@@ -2507,7 +3021,7 @@ def main() -> None:
     paths["train"], trained = phase_train(device)
     phase_resume(trained, work, device)
     del trained
-    scene, ips = phase_train_cli(work, device)
+    scene, ips, psnr0 = phase_train_cli(work, device)
     phase_resume_cli(work, scene, ips)
     paths["fsgs"], fsgs_scene = phase_fsgs(work, device)
     paths["dng"] = phase_dng(work, fsgs_scene, paths["fsgs"]["knn3"],
@@ -2517,6 +3031,8 @@ def main() -> None:
     paths["probes"] = phase_probes(device, paths["train"]["raster_fwd"])
     ply, paths["render"] = phase_render(device, work)
     phase_cli(ply, work)
+    paths["viewer"] = phase_viewer(work, scene, psnr0, device)
+    phase_harness(work, fsgs_scene)
     if "jax" in sys.modules or any(
             k.split(".")[0] == "sparse_view_3dgs_pack_tpu"
             for k in sys.modules):
@@ -2529,7 +3045,8 @@ def main() -> None:
     # its 30k dense init, dng: its soft-pass render, nir_step: the 800x800
     # NIR render (C = 1) of its 20 timed steps, nir: a 400x400 NIR render
     # of the trained model and knn3 on its 2000-point SfM init, probes: the
-    # shape each entry names)
+    # shape each entry names, viewer: a 1920x1080 frame served from the
+    # lgdwt training run)
     print(json.dumps({"kernels": [
         {"name": name, "path": path, "route": "cuda",
          "source": KERNELS[name][0], "replaces": KERNELS[name][1], **entry}

@@ -35,6 +35,8 @@ setup(
                                     "sparse_view_3dgs_pack_tpu.*",
                                     "sparse_view_3dgs_pack_tpu_torch",
                                     "sparse_view_3dgs_pack_tpu_torch.*"]),
+    package_data={"sparse_view_3dgs_pack_tpu_torch.benchmark":
+                  ["config.yaml"]},
     python_requires=">=3.10",
     ext_modules=[Extension(
         "fastio", [str(_NATIVE_SRC)],
@@ -45,6 +47,8 @@ setup(
     entry_points={
         "console_scripts": [
             "gs_benchmark = sparse_view_3dgs_pack_tpu.benchmark.cli:main",
+            "gs_benchmark_torch = "
+            "sparse_view_3dgs_pack_tpu_torch.benchmark.cli:main",
         ],
     },
 )

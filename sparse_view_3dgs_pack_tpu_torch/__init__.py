@@ -34,6 +34,11 @@ Layout:
                 TIFFs (host only); `python -m ...convert`
   metrics/      SSIM and PSNR; `python -m ...metrics` is the CLI
   render.py     `python -m sparse_view_3dgs_pack_tpu_torch.render`
+  viewer/       the SIBR remote-viewer bridge the 3dgs / lgdwt trainer serves
+  benchmark/    the `gs_benchmark` harness: methods trained, rendered and
+                scored side by side through the CLIs (`python -m
+                ...benchmark.cli runall`); `full_eval.py` the standard
+                benchmark sets
 """
 
 __version__ = "0.2.0"

@@ -7,7 +7,8 @@ same seed; this module adds the rasterizer test scenes of
 `tests/test_pallas.py`, a Blender-layout scene writer that needs no PIL,
 and the forward-facing COLMAP scene of `scripts/fsgs_fewshot_bench.py`
 (`write_llff_colmap_scene`, with an optional NIR band), rendered by the
-port's own renderer.
+port's own renderer, and the SIBR remote viewer's camera message for a
+camera (`viewer_message`).
 """
 
 from __future__ import annotations
@@ -331,6 +332,29 @@ def write_blender_scene(root: str, n_train: int = 4, n_test: int = 2,
                           + rng.normal(0, 0.05, (init_points, 3)),
                           rng.random((init_points, 3)))
     return root
+
+
+def viewer_message(cam, train: bool = True, keep_alive: bool = True,
+                   scaling_modifier: float = 1.0) -> bytes:
+    """The length-prefixed JSON message a SIBR remote viewer sends to ask
+    for a frame from `cam` (a `data.cameras.Camera`, any size): its
+    float32 matrices transposed into the viewer's row-vector convention,
+    with the y/z columns negated that `viewer/network_gui.py::receive`
+    negates back, so the MiniCam received holds `cam`'s matrices
+    exactly."""
+    view = np.asarray(cam.world_view_transform, np.float32).T.copy()
+    view[:, 1:3] *= -1
+    proj = np.asarray(cam.full_proj_transform, np.float32).T.copy()
+    proj[:, 1] *= -1
+    msg = json.dumps({
+        "resolution_x": cam.width, "resolution_y": cam.height,
+        "train": train, "fov_y": cam.fovy, "fov_x": cam.fovx,
+        "z_near": cam.znear, "z_far": cam.zfar, "shs_python": False,
+        "rot_scale_python": False, "keep_alive": keep_alive,
+        "scaling_modifier": scaling_modifier,
+        "view_matrix": view.reshape(-1).tolist(),
+        "view_projection_matrix": proj.reshape(-1).tolist()}).encode()
+    return len(msg).to_bytes(4, "little") + msg
 
 
 def _render_u8(model, R, T, fovx, width):

@@ -29,10 +29,12 @@ sparse_view_3dgs_pack_tpu_torch.train_nir`) trains RGB+NIR
 name>` (what `preprocessing/greenhouse.py` writes), each Gaussian gets an
 NIR albedo and the model one gain, `--nir_weight` weighs the NIR loss,
 and the PLY carries `nir_albedo`. `--seed` seeds the host RNGs and the
-camera order (default 0, the JAX CLI's fixed seed). Not ported yet, and
-raising NotImplementedError: `--data_parallel` other than 1,
-`--profile`; the checkpoint flags apply to the 3dgs / lgdwt loop only, as
-in the JAX CLI.
+camera order (default 0, the JAX CLI's fixed seed). The 3dgs / lgdwt
+loop serves the SIBR remote viewer on `--ip` / `--port` (127.0.0.1:6009;
+`viewer/network_gui.py`) unless `--disable_viewer` is given; the other
+methods train without it, as in the JAX CLI. Not ported yet, and raising
+NotImplementedError: `--data_parallel` other than 1, `--profile`; the
+checkpoint flags apply to the 3dgs / lgdwt loop only, as in the JAX CLI.
 """
 
 from __future__ import annotations

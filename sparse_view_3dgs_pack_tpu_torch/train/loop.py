@@ -3,7 +3,8 @@
 Counterpart of `sparse_view_3dgs_pack_tpu/train/loop.py:116-574` without
 what exists for XLA's static shapes or the TPU mesh: no data parallelism,
 no speculative compiler, no capacity or pair buckets, no lagged pair-count
-readback. The loop samples cameras without replacement, evaluates the LR
+readback. The loop serves the SIBR remote viewer when one listens
+(`serve_viewer`), samples cameras without replacement, evaluates the LR
 schedules, runs `train_step`, checks the step when debugging is armed
 (`train/debug.py`), and fires the host events: densify / clone / split /
 prune, opacity reset, SH-degree growth, eval, save, checkpoint
@@ -26,6 +27,7 @@ from ..metrics.lpips import lpips_is_proxy
 from ..renderer import render
 from ..utils.general import get_expon_lr_func
 from ..utils.image import psnr as psnr_fn
+from ..viewer import network_gui
 from . import checkpoint as ckpt
 from . import debug
 from .densify import densify_and_prune, reset_opacity
@@ -124,6 +126,23 @@ class Trainer:
             patch_dwt_lh1_weight=getattr(o, "patch_dwt_lh1_weight", 1.0),
             patch_dwt_hl1_weight=getattr(o, "patch_dwt_hl1_weight", 1.0))
 
+    def serve_viewer(self):
+        """Poll the SIBR remote-viewer socket once (reference polls every
+        iteration, `LGDWT-GS/train.py:82-95`; JAX `loop.py:359-376`): each
+        requested frame is an inference render of the current model. A
+        message with train=False and keep_alive holds training here,
+        serving frames, until the viewer resumes it. No-op when no
+        listener."""
+        if network_gui.listener is None:
+            return
+
+        def render_fn(cam, scaling_modifier):
+            return render(self.model, cam, self.background,
+                          sh_degree_active=self.active_sh_degree,
+                          scaling_modifier=float(scaling_modifier)).render
+
+        network_gui.serve_once(render_fn, self.dataset_args.source_path)
+
     def pick_camera(self) -> int:
         if not self.viewpoint_stack:
             self.viewpoint_stack = list(range(len(self.scene.getTrainCameras())))
@@ -134,6 +153,7 @@ class Trainer:
         self.iteration += 1
         it = self.iteration
         o = self.opt
+        self.serve_viewer()
         if it % 1000 == 0 and self.active_sh_degree < self.dataset_args.sh_degree:
             self.active_sh_degree += 1
         lrs = {k: f(it) for k, f in self.lr_scheds.items()}

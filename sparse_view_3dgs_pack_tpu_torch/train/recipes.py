@@ -4,6 +4,11 @@ Counterpart of `sparse_view_3dgs_pack_tpu/train/recipes.py`. Vanilla 3DGS
 is LGDWT with the DWT terms off; both run `simple_train`. FSGS runs
 `fsgs_loop.train_fsgs`, DNGaussian `dng_loop.train_dngaussian`, mult-dwtgs
 `nir_loop.train_nir` (whose scene `train_method` returns, as JAX's does).
+For `3dgs` / `lgdwt` the SIBR remote viewer listens on `--ip` / `--port`
+unless `--disable_viewer` is given (`Trainer.serve_viewer`); `fsgs`,
+`dngaussian` and `mult-dwtgs` train without it, as in JAX (its FSGS loop
+imports `network_gui` but never serves it; its DNG and NIR loops never
+touch it).
 """
 
 from __future__ import annotations
@@ -11,6 +16,7 @@ from __future__ import annotations
 import time
 
 from ..scene import Scene
+from ..viewer import network_gui
 from .loop import simple_train
 
 
@@ -36,9 +42,6 @@ def train_method(method: str, dataset, opt, pipe, args, device):
         raise ValueError(method)
     # arm the debug snapshot from --debug_from (`train/debug.py`)
     pipe.debug_from = getattr(args, "debug_from", -1)
-    if not getattr(args, "disable_viewer", False):
-        print("[viewer] the network viewer is not ported to the PyTorch "
-              "package yet (ROADMAP Queue 1 item 11); training without it")
     if method == "fsgs":
         from .fsgs_loop import train_fsgs
         pipe.use_confidence = getattr(args, "use_confidence", False)
@@ -54,6 +57,8 @@ def train_method(method: str, dataset, opt, pipe, args, device):
                          dataset_type=getattr(args, "dataset_type", "llff"))
         return
     scene = Scene(dataset, sh_degree=dataset.sh_degree, device=device)
+    if not getattr(args, "disable_viewer", False):
+        network_gui.init(args.ip, args.port)
 
     trainer, elapsed = simple_train(
         scene, opt, pipe, dataset,

@@ -130,7 +130,7 @@ def test_train_cli_resumes_from_checkpoint(tmp_path):
     out = str(tmp_path / "out")
     base = [sys.executable, "-m", "sparse_view_3dgs_pack_tpu_torch.train",
             "-s", scene, "-m", out, "--method", "lgdwt", "--device", "cpu",
-            "--patch_size", "8", "--densify_from_iter", "5",
+            "--disable_viewer", "--patch_size", "8", "--densify_from_iter", "5",
             "--densification_interval", "10", "--densify_until_iter", "35",
             "--densify_grad_threshold", "0.0001", "--test_iterations", "40"]
 

@@ -2,8 +2,8 @@
 inputs: `testing.write_colmap_scene`, LLFF `poses_bounds.npy`, the
 greenhouse TIFF pipeline (and its `nir/` band through the port's camera
 loader), the few-shot pipeline without a COLMAP binary, the convert CLI,
-`make_depth_scale` and `data_pipeline`'s stage routing (mirroring
-`tests/test_preprocessing.py`; `full_eval` is not ported yet)."""
+`make_depth_scale`, `data_pipeline`'s stage routing and `full_eval`'s jobs
+(mirroring `tests/test_preprocessing.py`)."""
 
 import json
 import os
@@ -20,7 +20,7 @@ from sparse_view_3dgs_pack_tpu.preprocessing import greenhouse as jax_gh
 from sparse_view_3dgs_pack_tpu.preprocessing import llff_poses as jax_llff
 from sparse_view_3dgs_pack_tpu.preprocessing import \
     make_depth_scale as jax_mds
-from sparse_view_3dgs_pack_tpu_torch import convert, testing
+from sparse_view_3dgs_pack_tpu_torch import convert, full_eval, testing
 from sparse_view_3dgs_pack_tpu_torch.data import colmap
 from sparse_view_3dgs_pack_tpu_torch.preprocessing import (data_pipeline,
                                                            greenhouse,
@@ -301,3 +301,52 @@ def test_data_pipeline_stage_routing_matches_jax(monkeypatch, tmp_path):
     jscn = str(tmp_path / "jax" / "scn")
     assert [(k, tuple(scn if x == jscn else x for x in a))
             for k, a in want] == got
+
+
+def _full_eval_calls(module, monkeypatch, argv):
+    calls = []
+    monkeypatch.setattr(module, "run", lambda cmd: calls.append(cmd))
+    module.main(argv)
+    return calls
+
+
+def test_full_eval_builds_expected_jobs(monkeypatch, tmp_path):
+    """full_eval drives train/render/metrics per scene with the reference's
+    per-set resolution flags (images_4 for m360 outdoor, images_2 indoor,
+    none for tat/db) through the port's module CLIs, and makes the root
+    `full_eval.py`'s calls with `-m <module>` in place of each script."""
+    import full_eval as jax_full_eval
+
+    argv = ["-m360", str(tmp_path / "m360"), "-tat", str(tmp_path / "tat"),
+            "--output_path", str(tmp_path / "out"), "--method", "3dgs"]
+    calls = _full_eval_calls(full_eval, monkeypatch, argv)
+    pkg = "sparse_view_3dgs_pack_tpu_torch"
+
+    def stage(name):
+        return [c for c in calls if c[1:3] == ["-m", f"{pkg}.{name}"]]
+
+    trains, renders, metrics = stage("train"), stage("render"), \
+        stage("metrics")
+    assert len(trains) == len(renders) == 9 + 2   # 9 m360 + 2 tat scenes
+    assert len(metrics) == 1 and len(metrics[0]) >= 3 + 1 + 11
+
+    def flags(scene):
+        cmd = next(c for c in trains if any(scene in a for a in c))
+        return cmd[cmd.index("-i") + 1] if "-i" in cmd else None
+
+    assert flags("bicycle") == "images_4"        # outdoor
+    assert flags("bonsai") == "images_2"         # indoor
+    assert flags("truck") is None                # tanks&temples: full res
+    assert all("--method" in c and "3dgs" in c for c in trains)
+
+    want = _full_eval_calls(jax_full_eval, monkeypatch, argv)
+    scripts = {f"{name}.py": ["-m", f"{pkg}.{name}"]
+               for name in ("train", "render", "metrics")}
+    assert calls == [[c[0], *scripts[os.path.basename(c[1])], *c[2:]]
+                     for c in want]
+
+    # skip flags suppress their stages
+    calls = _full_eval_calls(full_eval, monkeypatch, [
+        "-tat", str(tmp_path / "tat"), "--skip_training", "--skip_metrics",
+        "--output_path", str(tmp_path / "o2")])
+    assert calls and all(c[1:3] == ["-m", f"{pkg}.render"] for c in calls)

@@ -50,7 +50,7 @@ def test_train_cli_writes_the_jax_tree(tmp_path):
     proc = subprocess.run(
         [sys.executable, "-c", _PORT_TRAIN, "-s", scene, "-m", out,
          "--method", "lgdwt", "--device", "cpu", "--eval", "--quiet",
-         "--iterations", str(ITERS), "--patch_size", "16",
+         "--disable_viewer", "--iterations", str(ITERS), "--patch_size", "16",
          "--densify_from_iter", "5", "--densification_interval", "10",
          "--densify_until_iter", "25", "--densify_grad_threshold", "0.0001",
          "--test_iterations", "30", "--save_iterations", "15"],

@@ -4,6 +4,7 @@ Inputs are made with numpy from a seed and handed to both packages; the JAX
 side runs on the CPU (tests/conftest.py), Pallas kernels in interpret mode.
 """
 
+import contextlib
 import os
 
 import jax
@@ -60,3 +61,34 @@ def to_torch(jax_proj) -> Projected:
     """The JAX projection's arrays as the port's Projected, so both
     rasterizers see bit-identical inputs."""
     return Projected(*[torch.as_tensor(np.array(x)) for x in jax_proj])
+
+
+def recv_exact(sock, n):
+    """Exactly `n` bytes from a socket (a viewer client's reads)."""
+    buf = b""
+    while len(buf) < n:
+        chunk = sock.recv(n - len(buf))
+        assert chunk, "server closed early"
+        buf += chunk
+    return buf
+
+
+@contextlib.contextmanager
+def viewer_listener(network_gui):
+    """`network_gui` listening on a free loopback port (port 0: the xdist
+    workers never collide); yields the port and resets the module's
+    listener and connection afterwards."""
+    network_gui.init("127.0.0.1", 0)
+    try:
+        assert network_gui.listener is not None, "could not bind loopback"
+        yield network_gui.listener.getsockname()[1]
+    finally:
+        close_viewer(network_gui)
+
+
+def close_viewer(network_gui):
+    """Close and forget `network_gui`'s listener and connection."""
+    for sock in (network_gui.conn, network_gui.listener):
+        if sock is not None:
+            sock.close()
+    network_gui.listener = network_gui.conn = None
