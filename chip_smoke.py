@@ -38,6 +38,17 @@ Phases, one line each or more, any failure exits non-zero:
   resume       the phase-5 state saved as a checkpoint and restored into a
                fresh Trainer: every array bitwise equal; one more step on
                the same view from both, losses and parameters bitwise equal
+  dp           view data parallelism (`parallel/dp.py`) at phase 5's
+               configuration: NCCL at world size 1, 10 `dp_train_step`s
+               bitwise equal to 10 `train_step`s on the same views (model,
+               Adam moments, statistics), 20 timed and a profile (the
+               all-reduce's share); two ranks spawned on the one card over
+               gloo, one view each, against one process of B = 2: first
+               Adam moments within 1e-6 of each group's largest, statistics
+               within 1e-6 relative, the replicas bitwise equal after 10
+               steps and a densify event; per rank the median of 20 steps,
+               the all-reduce's share and the launches per step (1 / 1 / 1
+               per view); with two cards, the same two ranks over NCCL
   6 train_cli  `python -m sparse_view_3dgs_pack_tpu_torch.train --method
                lgdwt` on a 400x400 Blender scene rendered from a known cloud,
                densify and opacity reset within the run, then the port's
@@ -46,6 +57,10 @@ Phases, one line each or more, any failure exits non-zero:
                again with the debug snapshot armed (--debug_from 0) and a
                checkpoint halfway, resumed from it (--start_checkpoint) to
                the same end
+  dp_cli       the train CLI with --data_parallel on phase 6's scene: on
+               one card `--data_parallel 2` prints the clamp and trains on
+               the single-device path; on two or more `auto` trains over
+               every card to the +5 dB bar
   fsgs         `python -m sparse_view_3dgs_pack_tpu_torch.train --method
                fsgs` (run in this process, so that its launches are
                counted) on the few-shot fixture at full width (400x400, 24
@@ -115,6 +130,16 @@ Phases, one line each or more, any failure exits non-zero:
                forward's (warp, pair) work as in phase 4; timings
   8 cli        render + metrics CLIs on an 800x800 Blender-layout scene whose
                ground truth is the plain version's render
+  tile_parallel the band-parallel render (`parallel/tiles.py`) of phase 7's
+               model: 4 bands on the one card (and 5 and 18, which pad the
+               last band) bitwise equal to `renderer.render`, pairs per
+               band; 20 frames in 4 bands, raster_fwd launches per frame,
+               median ms beside the single render's; one band's kernel
+               against its plain version with its time and bound; the
+               render CLI with --tile_parallel 2 (one card: the
+               single-device message) writing phase 8's PNGs; with two
+               or more cards also a band a card on 2 and on every card,
+               bitwise and timed, and the render CLI's --tile_parallel -1
   viewer       the reference's SIBR transcript replayed through the port's
                bridge with CUDA frames, byte for byte; the wire's cost for a
                1920x1080 frame (no render), as the bridge writes it and with
@@ -137,9 +162,10 @@ Phases, one line each or more, any failure exits non-zero:
                exits 0, summary.csv holds 4 scored rows, the LaTeX tables
                exist, each run's metrics-stage and train-log PSNR are
                finite; `--resume` then skips all 4 runs in under 10 s
-Each path (train, probes, render, viewer) is driven with the kernels' launch
-counts set to 0 just before it and read just after; launches made to
-compare a kernel with its plain version are not counted. The line before
+Each path (train, dp, probes, render, tile_parallel, viewer) is driven
+with the kernels' launch counts set to 0 just before it and read just
+after; launches made to compare a kernel with its plain version are not
+counted. The line before
 the last is a JSON summary of the kernels, one entry per (kernel, path);
 the last line is {"ok": true, "device": {"platform": "gpu", ...}}.
 Imports no jax and nothing of the JAX package.
@@ -260,15 +286,16 @@ def cuda_ms(fn, reps: int) -> float:
 PROFILE_TRIES = 3
 
 
-def _trace(fn, n: int):
+def _trace(fn, n: int, tries: int = PROFILE_TRIES):
     """(CUDA events, host ms per call) of `n` calls of `fn` under
     torch.profiler. A trace now and then comes back with no CUDA activity
     at all (CUPTI drops the whole buffer); such a trace is taken again, up
-    to PROFILE_TRIES times, and the events are empty only if every try
-    lost them."""
+    to `tries` times, and the events are empty only if every try lost
+    them. A rank of a data-parallel run takes one try: a retake on one
+    rank alone would leave its collectives unmatched."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    for _ in range(PROFILE_TRIES):
+    for _ in range(tries):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -697,13 +724,15 @@ class Work(NamedTuple):
                 + (self.skipped * SKIP_OPS if with_skips else 0))
 
 
-def _work(proj, ba, n_contrib, W, H, tx, ty, pixels: int) -> Work:
+def _work(proj, ba, n_contrib, W, H, tx, ty, pixels: int,
+          origin_y: int = 0) -> Work:
     """Counts each pixel's evaluations before its stop and, with the
     kernels' own expression and test, the skipped ones among them; per
     (warp, pair) of warps whose threads cover `pixels` rows, K3's replayed,
     contributing and culled ones and the forward's walked, live and culled
     ones (the cull box of `raster.cull_box_torch`). Tiles in batches, pairs
-    in chunks, on the card."""
+    in chunks, on the card. `origin_y`: the image's first row in the
+    frame (a band of `parallel/tiles.py`)."""
     from sparse_view_3dgs_pack_tpu_torch.ops import raster
     from sparse_view_3dgs_pack_tpu_torch.ops.binning import tile_grid
     from sparse_view_3dgs_pack_tpu_torch.ops.blending import (ALPHA_EPS,
@@ -741,9 +770,10 @@ def _work(proj, ba, n_contrib, W, H, tx, ty, pixels: int) -> Work:
             break
         tsel = order[b0:b0 + tb]
         px = ((tsel % gx) * tx).to(torch.float32)[:, None] + lx
-        py = ((tsel // gx) * ty).to(torch.float32)[:, None] + ly
+        py = ((tsel // gx) * ty + origin_y).to(torch.float32)[:, None] + ly
         origin = torch.stack([tsel % gx * tx, tsel % gx * tx,
-                              tsel // gx * ty, tsel // gx * ty], 1)
+                              tsel // gx * ty + origin_y,
+                              tsel // gx * ty + origin_y], 1)
         rect_b = (origin[:, None, None, :] + rects[None, :, None, :])
         wmax_b, fend_b = warp_max[tsel], fwd_end[tsel]
         nc_b, st = nc_t[tsel], ba.tile_starts.to(torch.int64)[tsel]
@@ -826,7 +856,7 @@ def _segsum_bound(P, K, n_pairs):
     return bound(n_bytes, n_pairs * K)
 
 
-def phase_bwd_full(model, cams, device) -> dict:
+def phase_bwd_full(model, cams, device, phase: str = "bwd") -> dict:
     """The 800x800 training render of the training model, kernels against
     plain versions; also their times and bounds at that shape."""
     from sparse_view_3dgs_pack_tpu_torch.ops.binning import bin_gaussians
@@ -838,7 +868,7 @@ def phase_bwd_full(model, cams, device) -> dict:
                        tx, ty)
     bg = torch.zeros(3, device=device)
     args, fwd = _bwd_args(proj, ba, bg, W, H, tx, ty, seed=1)
-    return _train_kernels(proj, ba, bg, args, fwd, W, H, "bwd", device)
+    return _train_kernels(proj, ba, bg, args, fwd, W, H, phase, device)
 
 
 def _train_kernels(proj, ba, bg, args, fwd, W, H, phase: str,
@@ -976,12 +1006,13 @@ def _stages(events, dev, n: int, prefixes=STAGE_PREFIXES) -> dict:
     return out
 
 
-def _profile(fn, n: int, prefixes=STAGE_PREFIXES) -> dict:
+def _profile(fn, n: int, prefixes=STAGE_PREFIXES,
+             tries: int = PROFILE_TRIES) -> dict:
     """Device busy time, ops, top kernels and the breakdown by the ranges
     named with `prefixes` per call of `fn` over `n` calls, from
     torch.profiler's CUDA activity."""
     from torch.autograd import DeviceType
-    events, wall = _trace(fn, n)
+    events, wall = _trace(fn, n, tries)
     # the ranges' own device-side spans are not work
     dev = [e for e in events if e.device_type == DeviceType.CUDA
            and not e.name.startswith(STAGE_PREFIXES + tuple(prefixes))]
@@ -1106,16 +1137,14 @@ def phase_train(device):
                             bg, adam.step)
 
 
-def phase_train_cli(work: str, device):
-    """The training CLI on a Blender scene rendered from a known cloud, then
-    the render and metrics CLIs on its output. Returns the scene directory,
-    the training run's it/s and the test PSNR at iteration 0."""
+def _train_cli_scene(work: str, device):
+    """Phase 6's Blender scene, rendered from a known cloud, and the test
+    PSNR of the model the trainer starts from (iteration 0)."""
     from sparse_view_3dgs_pack_tpu_torch import testing
     from sparse_view_3dgs_pack_tpu_torch.data import readers
     from sparse_view_3dgs_pack_tpu_torch.data.camera_utils import \
         camera_list_from_cam_infos
-    from sparse_view_3dgs_pack_tpu_torch.data.ply import (fetch_point_cloud,
-                                                          read_ply)
+    from sparse_view_3dgs_pack_tpu_torch.data.ply import fetch_point_cloud
     from sparse_view_3dgs_pack_tpu_torch.models import gaussians as gm
     from sparse_view_3dgs_pack_tpu_torch.train.loop import evaluate_cameras
     t0 = time.perf_counter()
@@ -1136,6 +1165,15 @@ def phase_train_cli(work: str, device):
                      f"2000-Gaussian cloud, {CLI_INIT_POINTS} start points, "
                      f"in {time.perf_counter() - t0:.1f} s; test PSNR at "
                      f"iteration 0: {psnr0:.3f} dB")
+    return scene, psnr0
+
+
+def phase_train_cli(work: str, device):
+    """The training CLI on a Blender scene rendered from a known cloud, then
+    the render and metrics CLIs on its output. Returns the scene directory,
+    the training run's it/s and the test PSNR at iteration 0."""
+    from sparse_view_3dgs_pack_tpu_torch.data.ply import read_ply
+    scene, psnr0 = _train_cli_scene(work, device)
     out = os.path.join(work, "train_out")
     cmd = [sys.executable, "-m", "sparse_view_3dgs_pack_tpu_torch.train",
            "-s", scene, "-m", out, "--method", "lgdwt", "--disable_viewer",
@@ -2460,10 +2498,11 @@ def phase_render(device, work: str):
         library_ms=None)}
 
 
-def phase_cli(ply: str, work: str) -> None:
+def phase_cli(ply: str, work: str) -> str:
     """The port's render and metrics CLIs, as subprocesses, on a Blender
     scene whose ground truth is the plain version's render (the model on
-    the CPU); the CLI renders through the kernel."""
+    the CPU); the CLI renders through the kernel. Returns the model
+    directory."""
     from sparse_view_3dgs_pack_tpu_torch import testing
     from sparse_view_3dgs_pack_tpu_torch.data.camera_utils import \
         camera_list_from_cam_infos
@@ -2515,6 +2554,7 @@ def phase_cli(ply: str, work: str) -> None:
     log("cli", f"test PSNR {res['PSNR']:.4f} dB, SSIM {res['SSIM']:.6f}")
     if not (res["PSNR"] >= 50.0 and res["SSIM"] >= 0.999):
         raise AssertionError(f"CLI render vs plain version: {res}")
+    return model_dir
 
 
 def _recv_exact(sock, n: int) -> bytes:
@@ -3004,6 +3044,489 @@ def phase_harness(work: str, scene: str) -> None:
                              f"{proc.stdout[-2000:]}")
 
 
+# the dp phase: phase 5's configuration through `parallel/dp.py`, DP_STEPS
+# steps and a densify event, then DP_TIMED timed steps on each rank
+DP_STEPS, DP_TIMED = 10, 20
+DP_PREFIXES = STAGE_PREFIXES + ("dp/",)
+# the tile_parallel phase: phase 7's frames in TP_BANDS bands on one card;
+# 1080 rows are 67.5 tile rows, so 5 bands of 14 rows pad the last with 2
+# rows and 18 bands of 4 leave the last one empty
+TP_BANDS, TP_PADDED = 4, (5, 18)
+
+
+def _timed(fn, n: int):
+    """(CUDA-event ms, host ms) of each of `n` calls fn(i)."""
+    ev, host = [], []
+    for i in range(n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        fn(i)
+        end.record()
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+        ev.append(start.elapsed_time(end))
+    return ev, host
+
+
+def _dp_setup(device):
+    """Phase 5's training configuration with fresh optimizer states:
+    (model, adam, exposure adam, running mean, cameras, bank, config)."""
+    from sparse_view_3dgs_pack_tpu_torch.train import optim
+    model, cams, bank, cfg, _ = _train_setup(device)
+    return (model, optim.init_adam(model.params()),
+            optim.init_exposure_adam(model.exposure),
+            torch.ones((), device=device), cams, bank, cfg)
+
+
+def _dp_views(s: int) -> list:
+    """The two views of step s of the 2-view runs (the 4 cameras in
+    turn)."""
+    return [(2 * s) % 4, (2 * s + 1) % 4]
+
+
+def _dp_stepper(state, bank, cfg, group, n_views: int, views_of):
+    """fn(s): one `dp_train_step` of `state` (model, adam, exposure adam,
+    [running mean], updated in place) on views_of(s) of the step's
+    `n_views`, at phase 5's learning rates."""
+    from sparse_view_3dgs_pack_tpu_torch.parallel import dp
+    model, adam, eadam, running = state
+    lrs = {k: 1e-3 for k in model.params()}
+    bg = torch.zeros(3, device=model.xyz.device)
+
+    def fn(s):
+        _, running[0] = dp.dp_train_step(
+            model, adam, eadam, running[0], bank, views_of(s), n_views, lrs,
+            0.0, 0.0, 3, bg, cfg, group)
+    return fn
+
+
+def _dp_allreduce_line(prof: dict, med: float) -> str:
+    if not prof:
+        return "all-reduce share not measured (no device activity traced)"
+    host, dev = prof["stages"].get("dp/allreduce", [0.0, 0.0])
+    return (f"dp/allreduce {host:.3f} ms host / {dev:.3f} ms device per "
+            f"step ({100 * host / med:.1f}% of the median step)")
+
+
+def _dp_rank(group, work: str, tag: str) -> None:
+    """One rank of the dp phase's 2-rank runs (`parallel.dp.launch` spawns
+    it): phase 5's configuration, one view a rank, DP_STEPS steps and a
+    densify event; its state after the first step and at the end, then
+    DP_TIMED timed steps, their launches and a profile of 3, into
+    `work`."""
+    from sparse_view_3dgs_pack_tpu_torch.parallel import dp
+    from sparse_view_3dgs_pack_tpu_torch.train.densify import \
+        densify_and_prune
+    model, adam, eadam, running, _, bank, cfg = _dp_setup(group.device)
+    dp.broadcast_state(group, model, adam, eadam, running)
+    carry = [running]
+    step = _dp_stepper((model, adam, eadam, carry), bank, cfg, group, 2,
+                       lambda s: [_dp_views(s)[group.rank]])
+
+    def save(name):
+        arrays = _state_arrays(model, adam, eadam, carry[0])
+        torch.save({k: v.detach().cpu() for k, v in arrays.items()},
+                   os.path.join(work, f"{tag}_rank{group.rank}_{name}.pt"))
+
+    torch.backends.cudnn.deterministic = True   # SSIM's convolutions
+    step(0)
+    save("step1")
+    for s in range(1, DP_STEPS):
+        step(s)
+    n_before = model.num_points
+    densify_and_prune(model, adam, 0.0002, 0.005, 6.0,
+                      generator=torch.Generator(device=group.device)
+                      .manual_seed(DP_STEPS))
+    save("final")
+    torch.backends.cudnn.deterministic = False  # timed as phase 5 is
+    flat = 4 * (sum(p.numel() for p in model.params().values())
+                + model.exposure.numel() + 2 * model.num_points + 8)
+    reset_counts()
+    ev, host = _timed(lambda i: step(DP_STEPS + i), DP_TIMED)
+    counts = read_counts()
+    prof = _profile(lambda: step(0), 3, DP_PREFIXES, tries=1)
+    with open(os.path.join(work, f"{tag}_rank{group.rank}.json"), "w") as f:
+        json.dump({"ev_ms": ev, "host_ms": host, "launches": counts,
+                   "points": [n_before, model.num_points],
+                   "flat_bytes": flat, "stages": prof.get("stages", {}),
+                   "busy_ms": prof.get("busy_ms"),
+                   "wall_ms": prof.get("wall_ms")}, f)
+
+
+def _dp_two_ranks(work: str, tag: str, devices, backend, one: dict) -> None:
+    """Two ranks of `_dp_rank` on `devices`: after one step each replica
+    against the single process of B = 2 (`one`, on the card): first Adam
+    moments within 1e-6 of each group's largest, statistics within 1e-6
+    relative, element by element; the two replicas bitwise equal then and after DP_STEPS steps
+    and a densify event; per rank the median step, the all-reduce's share
+    and the launches per step."""
+    from sparse_view_3dgs_pack_tpu_torch.models.gaussians import (PARAM_NAMES,
+                                                                  STAT_NAMES)
+    from sparse_view_3dgs_pack_tpu_torch.parallel import dp
+    t0 = time.perf_counter()
+    dp.launch(_dp_rank, devices, os.path.join(work, f"{tag}_rendezvous"),
+              args=(work, tag), backend=backend)
+    secs = time.perf_counter() - t0
+    load = lambda r, name: torch.load(
+        os.path.join(work, f"{tag}_rank{r}_{name}.pt"))
+    first, final = [load(r, "step1") for r in (0, 1)], \
+        [load(r, "final") for r in (0, 1)]
+    one = {k: v.detach().cpu() for k, v in one.items()}
+
+    def of_largest(keys):
+        return max(float((first[0][k] - one[k]).abs().max())
+                   / max(float(one[k].abs().max()), 1e-30) for k in keys)
+
+    def per_element(keys):
+        # |a - b| / |b| element by element; a nonzero a where b is 0 is inf
+        out = 0.0
+        for k in keys:
+            a, b = first[0][k].double(), one[k].double()
+            d = (a - b).abs()
+            r = torch.where(b != 0, d / b.abs(),
+                            torch.where(d > 0, float("inf"), 0.0))
+            out = max(out, float(r.max()))
+        return out
+    m_err = of_largest([f"adam.m.{k}" for k in PARAM_NAMES])
+    s_err = per_element(STAT_NAMES)
+    bitwise = not _unequal(first[0], one)
+    bad_first, bad_final = _unequal(first[0], first[1]), \
+        _unequal(final[0], final[1])
+    log("dp", f"{tag}: 2 ranks on {', '.join(devices)} ({backend or 'nccl'}) "
+              f"in {secs:.1f} s; after step 1 against one process of B = 2: "
+              f"first moments {m_err:.3g} of each group's largest, "
+              f"statistics {s_err:.3g} relative per element (bitwise: "
+              f"{bitwise}); "
+              f"replicas bitwise equal after step 1: {not bad_first}, "
+              f"after {DP_STEPS} steps and a densify event: "
+              f"{not bad_final}")
+    for r in (0, 1):
+        with open(os.path.join(work, f"{tag}_rank{r}.json")) as f:
+            t = json.load(f)
+        med = float(np.median(t["ev_ms"]))
+        per_step = {k: t["launches"][k] / DP_TIMED for k in TRAIN_KERNELS}
+        log("dp", f"{tag} rank {r}: {DP_TIMED} steps, median {med:.3f} ms "
+                  f"(host clock {float(np.median(t['host_ms'])):.3f}; min "
+                  f"{min(t['ev_ms']):.3f}, max {max(t['ev_ms']):.3f}); "
+                  f"Gaussians {t['points'][0]} -> {t['points'][1]} at the "
+                  f"densify event; all-reduce of "
+                  f"{t['flat_bytes'] / 1e6:.1f} MB: "
+                  + _dp_allreduce_line({"stages": t["stages"]}
+                                       if t["stages"] else {}, med)
+                  + f"; launches per step {per_step}")
+        if any(v != 1 for v in per_step.values()):
+            raise AssertionError(f"{tag} rank {r}: launches per step "
+                                 f"{per_step}, not 1 each")
+    if m_err > 1e-6 or s_err > 1e-6 or bad_first or bad_final:
+        raise AssertionError(f"{tag}: moments {m_err}, statistics {s_err}, "
+                             f"replicas unequal {bad_first} / {bad_final}")
+
+
+def phase_dp(work: str, device) -> dict:
+    """View data parallelism (`parallel/dp.py`) at phase 5's configuration:
+    NCCL at world size 1 through `dp_train_step`, DP_STEPS steps bitwise
+    equal to `train_step` on the same views (the path whose launches the
+    kernels line counts), DP_TIMED timed and a profile; two ranks on one
+    card over gloo against one process of B = 2; where there are two
+    cards, two ranks over NCCL. Returns the path's kernel entries."""
+    import copy
+
+    import torch.distributed as dist
+    from sparse_view_3dgs_pack_tpu_torch.parallel import dp
+    from sparse_view_3dgs_pack_tpu_torch.train import step as tstep
+    model, adam, eadam, running, cams, bank, cfg = _dp_setup(device)
+    pristine = copy.deepcopy((model, adam, eadam, running))
+    lrs = {k: 1e-3 for k in model.params()}
+    bg = torch.zeros(3, device=device)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True     # SSIM's convolutions
+    group = dp.init_group(0, 1, "file://" + os.path.join(
+        work, "dp_nccl1_rendezvous"), device)
+    try:
+        ref_model, ref_adam, ref_eadam, ref_running = copy.deepcopy(pristine)
+        for s in range(DP_STEPS):
+            _, ref_running = tstep.train_step(
+                ref_model, ref_adam, ref_eadam, ref_running, bank, s % 4,
+                lrs, 0.0, 0.0, 3, bg, cfg)
+        carry = [running]
+        step = _dp_stepper((model, adam, eadam, carry), bank, cfg, group, 1,
+                           lambda s: [s % 4])
+        reset_counts()
+        for s in range(DP_STEPS):
+            step(s)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        bad = _unequal(_state_arrays(model, adam, eadam, carry[0]),
+                       _state_arrays(ref_model, ref_adam, ref_eadam,
+                                     ref_running))
+        log("dp", f"NCCL, world size 1: {DP_STEPS} dp_train_step against "
+                  f"{DP_STEPS} train_step on the same views, model, Adam "
+                  f"moments and statistics bitwise equal: {not bad}; "
+                  f"launches {({k: counts[k] for k in TRAIN_KERNELS})}")
+        if bad or any(counts[k] != DP_STEPS for k in TRAIN_KERNELS):
+            raise AssertionError(f"NCCL world 1 differs from train_step: "
+                                 f"{bad}; launches {counts}")
+        # timed as phase 5 times train_step: cuDNN free to choose
+        torch.backends.cudnn.deterministic = deterministic
+        ev, host = _timed(lambda i: step(DP_STEPS + i), DP_TIMED)
+        med = float(np.median(ev))
+        prof = _profile(lambda: step(0), 3, DP_PREFIXES)
+        log("dp", f"NCCL, world size 1: {DP_TIMED} steps, median "
+                  f"{med:.3f} ms (host clock {float(np.median(host)):.3f}); "
+                  + _dp_allreduce_line(prof, med))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        dist.destroy_process_group()
+    kernels = phase_bwd_full(model, cams, device, "dp")
+    for name in kernels:
+        kernels[name]["launches"] = counts[name]
+    del model, adam, eadam, ref_model, ref_adam, ref_eadam
+
+    # the single process that takes both views of the 2-rank runs' step 1
+    one_model, one_adam, one_eadam, one_running = copy.deepcopy(pristine)
+    carry = [one_running]
+    torch.backends.cudnn.deterministic = True
+    try:
+        _dp_stepper((one_model, one_adam, one_eadam, carry), bank, cfg, None,
+                    2, _dp_views)(0)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    one = _state_arrays(one_model, one_adam, one_eadam, carry[0])
+    del pristine
+    torch.cuda.empty_cache()
+    _dp_two_ranks(work, "gloo", ["cuda:0", "cuda:0"], "gloo", one)
+    if torch.cuda.device_count() >= 2:
+        _dp_two_ranks(work, "nccl2", ["cuda:0", "cuda:1"], None, one)
+    else:
+        log("dp", "two ranks over NCCL on two cards: not run "
+                  f"({torch.cuda.device_count()} card)")
+    return kernels
+
+
+def phase_dp_cli(work: str, scene: str, psnr0: float) -> None:
+    """`python -m sparse_view_3dgs_pack_tpu_torch.train --data_parallel` on
+    phase 6's scene: with one card, `--data_parallel 2` prints the clamp
+    and trains on the single-device path (100 iterations); with two or
+    more, `--data_parallel auto` trains over every card to phase 6's
+    +5 dB bar."""
+    from sparse_view_3dgs_pack_tpu_torch.parallel import dp
+    n_cards = torch.cuda.device_count()
+    out = os.path.join(work, "dp_cli_out")
+    iters = CLI_ITERS if n_cards >= 2 else 100
+    flag = "auto" if n_cards >= 2 else "2"
+    cmd = [sys.executable, "-m", "sparse_view_3dgs_pack_tpu_torch.train",
+           "-s", scene, "-m", out, "--method", "lgdwt", "--disable_viewer",
+           "--eval", "--iterations", str(iters), "--densify_from_iter", "50",
+           "--densification_interval", "50", "--densify_until_iter", "450",
+           "--opacity_reset_interval", "250", "--test_iterations",
+           str(iters), "--data_parallel", flag]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True)
+    secs = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"train CLI --data_parallel {flag} failed "
+                             f"(rc={proc.returncode}):\n{proc.stdout[-3000:]}"
+                             f"\n{proc.stderr[-3000:]}")
+    lines = [ln.strip() for ln in proc.stdout.splitlines()
+             if "[dp]" in ln or "Training took" in ln]
+    log("dp_cli", f"--data_parallel {flag} on {n_cards} card(s), {iters} "
+                  f"iterations, {secs:.1f} s: " + " | ".join(lines))
+    ply = os.path.join(out, "point_cloud", f"iteration_{iters}",
+                       "point_cloud.ply")
+    if not os.path.exists(ply):
+        raise AssertionError(f"no {ply}")
+    if n_cards < 2:
+        clamp = (f"[dp] WARNING: --data_parallel 2 > {n_cards} devices; "
+                 f"clamping")
+        auto = dp.resolve_data_parallel("auto", "cuda")
+        log("dp_cli", f"the clamp printed: {clamp in proc.stdout}; 'auto' "
+                      f"resolves to {auto} rank(s) on this machine")
+        if clamp not in proc.stdout or "data-parallel over" in proc.stdout \
+                or auto != 1:
+            raise AssertionError("one card: no clamp, or a data-parallel "
+                                 "run")
+        return
+    for mod, extra in (("render", ["--skip_train"]), ("metrics", [])):
+        p = subprocess.run(
+            [sys.executable, "-m", f"sparse_view_3dgs_pack_tpu_torch.{mod}",
+             "-m", out, *extra], cwd=REPO, capture_output=True, text=True)
+        if p.returncode != 0:
+            raise AssertionError(f"{mod} CLI failed: {p.stderr[-2000:]}")
+    with open(os.path.join(out, "results.json")) as f:
+        res = json.load(f)[f"ours_{iters}"]
+    log("dp_cli", f"test PSNR {psnr0:.3f} dB at iteration 0 -> "
+                  f"{res['PSNR']:.3f} dB over {n_cards} cards")
+    if not (f"data-parallel over {n_cards} devices" in proc.stdout
+            and res["PSNR"] >= psnr0 + 5.0):
+        raise AssertionError(f"--data_parallel auto: {res['PSNR']} dB")
+
+
+def phase_tile_parallel(device, ply: str, model_dir: str) -> dict:
+    """The band-parallel render (`parallel/tiles.py`) at phase 7's size:
+    bands on one card (the list names cuda:0 repeatedly) against
+    `renderer.render`, bitwise, at TP_BANDS bands and at band counts that
+    pad the last band; per-band pairs; N_FRAMES frames in TP_BANDS bands,
+    raster_fwd launches per frame, median ms beside the single render's;
+    one band's kernel against its plain version, its time and bound; the
+    render CLI with --tile_parallel 2 on phase 8's model, PNGs equal to
+    phase 8's. With two or more cards, also one band a card on 2 and on
+    every card (bitwise, timed) and the render CLI with --tile_parallel -1.
+    Returns the path's kernel entry."""
+    from sparse_view_3dgs_pack_tpu_torch import testing
+    from sparse_view_3dgs_pack_tpu_torch.models import gaussians as gm
+    from sparse_view_3dgs_pack_tpu_torch.ops.binning import bin_gaussians
+    from sparse_view_3dgs_pack_tpu_torch.ops.raster import (
+        fwd_pixels, rasterize_forward, rasterize_forward_torch)
+    from sparse_view_3dgs_pack_tpu_torch.parallel.tiles import (
+        band_rows, make_tile_parallel_render_fn, render_tile_parallel)
+    from sparse_view_3dgs_pack_tpu_torch.renderer import (
+        INFER_TILE_X, INFER_TILE_Y, project_params, render)
+    W, H, tx, ty = RENDER_W, RENDER_H, INFER_TILE_X, INFER_TILE_Y
+    model = gm.load_ply(ply, sh_degree=3, device=device)
+    cams = testing.make_orbit_cameras(N_FRAMES, radius=6.0, width=W,
+                                      height_px=H)
+    bg = [0.0, 0.0, 0.0]
+    fields = ("render", "alpha", "depth", "expected_depth")
+    ref = render(model, cams[0], bg)
+    with torch.no_grad():
+        proj = project_params(model.params(), cams[0].params(), W, H, 3)
+    for n in (TP_BANDS,) + TP_PADDED:
+        devices = ["cuda:0"] * n
+        got = make_tile_parallel_render_fn(devices, W, H)(model, cams[0], bg)
+        diff = {f: float((getattr(got, f) - getattr(ref, f)).abs().max())
+                for f in fields}
+        same = all(torch.equal(getattr(got, f), getattr(ref, f))
+                   for f in diff)
+        pairs = render_tile_parallel(proj, W, H, bg, devices).band_pairs
+        rows = band_rows(H, n, ty)
+        log("tile_parallel", f"{n} bands of {rows} tile rows ({n * rows * ty}"
+                             f" rows for {H}): bitwise the single render: "
+                             f"{same} (max |diff| {max(diff.values()):.3g});"
+                             f" pairs per band {pairs} (sum {sum(pairs)}, "
+                             f"single {ref.n_pairs})")
+        if max(diff.values()) > 1e-6:
+            raise AssertionError(f"{n} bands: {diff}")
+
+    fn = make_tile_parallel_render_fn(["cuda:0"] * TP_BANDS, W, H)
+    fn(model, cams[0], bg)
+    torch.cuda.synchronize()
+    reset_counts()
+    ev, host = _timed(lambda i: fn(model, cams[i], bg), N_FRAMES)
+    counts = read_counts()
+    ev1, host1 = _timed(lambda i: render(model, cams[i], bg), N_FRAMES)
+    per_frame = counts["raster_fwd"] / N_FRAMES
+    log("tile_parallel", f"{N_FRAMES} frames {W}x{H} in {TP_BANDS} bands on "
+                         f"one card: median {float(np.median(ev)):.3f} ms "
+                         f"(host clock {float(np.median(host)):.3f}) against "
+                         f"the single render's {float(np.median(ev1)):.3f} "
+                         f"({float(np.median(host1)):.3f}); raster_fwd "
+                         f"launches per frame {per_frame}")
+    if counts["raster_fwd"] != TP_BANDS * N_FRAMES:
+        raise AssertionError(f"raster_fwd launched {counts['raster_fwd']} "
+                             f"times for {N_FRAMES} frames of {TP_BANDS} "
+                             f"bands")
+
+    # band 1 (an inner one) alone: the kernel against the plain version
+    rows = band_rows(H, TP_BANDS, ty)
+    bh, y0 = rows * ty, rows * ty
+    ba = bin_gaussians(proj.means2d, proj.depths, proj.rect_radii, W, H, tx,
+                       ty, rows=(rows, rows))
+    bgt = torch.zeros(3, device=device)
+    args = _raster_args(proj, ba, bgt) + (W, bh, tx, ty)
+    out = rasterize_forward(*args, False, y0)
+    plain = rasterize_forward_torch(*args, False, y0)
+    torch.cuda.synchronize()
+    errs = max_errs(out, plain)
+    t_kernel = cuda_ms(lambda: rasterize_forward(*args, False, y0), 20)
+    t_plain = cuda_ms(lambda: rasterize_forward_torch(*args, False, y0), 3)
+    nc = rasterize_forward(*args, True, y0).n_contrib
+    work = _work(proj, ba, nc, W, bh, tx, ty, fwd_pixels(False), y0)
+    fb = _fwd_bound(proj.means2d.shape[0], 3, ba.total_pairs,
+                    ba.tile_counts.shape[0], W, bh, work, False)
+    log("tile_parallel", f"band 1 ({W}x{bh} from row {y0}, "
+                         f"{ba.total_pairs} pairs): kernel vs plain "
+                         + " ".join(f"{k}={v:.3g}" for k, v in errs.items())
+                         + f"; raster_fwd {t_kernel:.3f} ms (plain "
+                           f"{t_plain:.3f}, bound {fb[0]:.4f} by {fb[1]}); "
+                           f"{work.fwd_line()}")
+    if not (errs["color"] <= FULL_TOL and errs["alpha"] <= FULL_TOL) \
+            or work.fwd_culled_live:
+        raise AssertionError(f"band 1: kernel vs plain {errs}, culled live "
+                             f"{work.fwd_culled_live}")
+
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        for n in sorted({2, n_cards}):
+            fn = make_tile_parallel_render_fn(
+                [f"cuda:{i}" for i in range(n)], W, H)
+            same = all(torch.equal(getattr(fn(model, c, bg), f),
+                                   getattr(render(model, c, bg), f))
+                       for c in cams[:3] for f in fields)
+            torch.cuda.synchronize()
+            reset_counts()
+            ev_n, host_n = _timed(lambda i: fn(model, cams[i], bg), N_FRAMES)
+            launched = read_counts()["raster_fwd"]
+            log("tile_parallel", f"{n} bands on {n} cards: 3 frames bitwise "
+                                 f"the single render: {same}; {N_FRAMES} "
+                                 f"frames median {float(np.median(ev_n)):.3f}"
+                                 f" ms (host clock "
+                                 f"{float(np.median(host_n)):.3f}) against "
+                                 f"the single render's "
+                                 f"{float(np.median(ev1)):.3f}; raster_fwd "
+                                 f"launches {launched}")
+            if not same or launched != n * N_FRAMES:
+                raise AssertionError(f"{n} cards: bitwise {same}, launches "
+                                     f"{launched}")
+    else:
+        log("tile_parallel", f"bands on two or more cards: not run "
+                             f"({n_cards} card)")
+
+    # the render CLI on phase 8's model: --tile_parallel 2, and -1 (every
+    # card) where there are two or more
+    for flag in ("2",) + (("-1",) if n_cards >= 2 else ()):
+        tp_dir = model_dir + "_tile_parallel"
+        shutil.rmtree(tp_dir, ignore_errors=True)
+        shutil.copytree(model_dir, tp_dir,
+                        ignore=lambda d, names: [n for n in names
+                                                 if d == model_dir
+                                                 and n in ("train", "test")])
+        proc = subprocess.run(
+            [sys.executable, "-m", "sparse_view_3dgs_pack_tpu_torch.render",
+             "-m", tp_dir, "--tile_parallel", flag], cwd=REPO,
+            capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise AssertionError(f"render CLI --tile_parallel {flag} "
+                                 f"failed:\n{proc.stdout}\n{proc.stderr}")
+        message = [ln.strip() for ln in proc.stdout.splitlines()
+                   if "tile_parallel:" in ln]
+        n_png, same = 0, True
+        for split in ("train", "test"):
+            d = os.path.join(model_dir, split, "ours_30000", "renders")
+            for name in sorted(os.listdir(d)):
+                with open(os.path.join(d, name), "rb") as a, \
+                        open(os.path.join(tp_dir, split, "ours_30000",
+                                          "renders", name), "rb") as b:
+                    same = same and a.read() == b.read()
+                n_png += 1
+        want = ("only 1 device(s) available, rendering single-device"
+                if n_cards < 2 else
+                f"band-sharded rendering over "
+                f"{2 if flag == '2' else n_cards} devices")
+        log("tile_parallel", f"render CLI --tile_parallel {flag}: "
+                             f"{message}; {n_png} PNGs byte-equal to the "
+                             f"plain render CLI's: {same}")
+        if not same or not any(want in m for m in message):
+            raise AssertionError(f"render CLI --tile_parallel {flag}: "
+                                 f"{message}, PNGs equal {same}")
+    return {"raster_fwd": dict(
+        launches=counts["raster_fwd"],
+        max_abs_err=max(errs["color"], errs["alpha"], errs["invdepth"]),
+        ms=t_kernel, plain_ms=t_plain, bound_ms=fb[0], bound_by=fb[1],
+        library_ms=None)}
+
+
 def main() -> None:
     t_start = time.perf_counter()
     card = phase_device()
@@ -3021,8 +3544,10 @@ def main() -> None:
     paths["train"], trained = phase_train(device)
     phase_resume(trained, work, device)
     del trained
+    paths["dp"] = phase_dp(work, device)
     scene, ips, psnr0 = phase_train_cli(work, device)
     phase_resume_cli(work, scene, ips)
+    phase_dp_cli(work, scene, psnr0)
     paths["fsgs"], fsgs_scene = phase_fsgs(work, device)
     paths["dng"] = phase_dng(work, fsgs_scene, paths["fsgs"]["knn3"],
                              device)
@@ -3030,7 +3555,8 @@ def main() -> None:
     paths["nir"] = phase_nir(work, device)
     paths["probes"] = phase_probes(device, paths["train"]["raster_fwd"])
     ply, paths["render"] = phase_render(device, work)
-    phase_cli(ply, work)
+    model_dir = phase_cli(ply, work)
+    paths["tile_parallel"] = phase_tile_parallel(device, ply, model_dir)
     paths["viewer"] = phase_viewer(work, scene, psnr0, device)
     phase_harness(work, fsgs_scene)
     if "jax" in sys.modules or any(
@@ -3040,7 +3566,8 @@ def main() -> None:
     log("done", f"all phases in {time.perf_counter() - t_start:.1f} s")
     print(card)
     # one entry per (kernel, path): launches, times and bound at that
-    # path's own shape (train 800x800 16x16 tiles, render 1080p 32x16,
+    # path's own shape (train and dp 800x800 16x16 tiles, render 1080p
+    # 32x16, tile_parallel one 1920x272 band of a 1080p frame at 32x16,
     # fsgs: a 400x400 training render of the trained model and knn3 on
     # its 30k dense init, dng: its soft-pass render, nir_step: the 800x800
     # NIR render (C = 1) of its 20 timed steps, nir: a 400x400 NIR render

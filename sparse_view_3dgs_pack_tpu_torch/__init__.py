@@ -35,6 +35,9 @@ Layout:
   metrics/      SSIM and PSNR; `python -m ...metrics` is the CLI
   render.py     `python -m sparse_view_3dgs_pack_tpu_torch.render`
   viewer/       the SIBR remote-viewer bridge the 3dgs / lgdwt trainer serves
+  parallel/     view data parallelism over torch.distributed (NCCL, gloo;
+                the train CLI's `--data_parallel`) and the band-parallel
+                render (the render CLI's `--tile_parallel`)
   benchmark/    the `gs_benchmark` harness: methods trained, rendered and
                 scored side by side through the CLIs (`python -m
                 ...benchmark.cli runall`); `full_eval.py` the standard

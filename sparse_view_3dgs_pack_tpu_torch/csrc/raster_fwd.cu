@@ -60,7 +60,10 @@
 //     (what the JAX backward replays; not CUDA's last_contributor);
 //   * log T_final is written as the log-domain sum itself: 1 - alpha cannot
 //     give it back to f32 accuracy where T is near the 1e-4 stop;
-//   * pixels past the image edge are not written.
+//   * pixels past the image edge are not written;
+//   * `origin_y` is the image's first row in frame coordinates: a band of
+//     the frame (parallel/tiles.py) evaluates its pixels at the frame's y,
+//     so its Gaussians' means are never shifted (and never rounded).
 
 #include <cuda_runtime.h>
 #include <float.h>
@@ -114,7 +117,7 @@ raster_fwd_kernel(const float* __restrict__ means2d,    // (P, 2)
                   int* __restrict__ out_n_contrib,      // (H, W) if kNContrib
                   float* __restrict__ out_log_t,        // (H, W) if kNContrib
                   int width, int height, int tile_x, int tile_y,
-                  int grid_x) {
+                  int grid_x, int origin_y) {
   constexpr int NP = C + 2;  // payload: colours, inverse depth, depth
   constexpr int kPix = pixels_per_thread(kNContrib);
   static_assert(NP <= kRec - 8, "payload does not fit the packed record");
@@ -139,7 +142,7 @@ raster_fwd_kernel(const float* __restrict__ means2d,    // (P, 2)
 #pragma unroll
   for (int i = 0; i < kPix; ++i) {
     const int py = oy + kPix * (tid / tile_x) + i;
-    fy[i] = static_cast<float>(py);
+    fy[i] = static_cast<float>(origin_y + py);
     done[i] = !(px < width && py < height);
 #pragma unroll
     for (int ch = 0; ch < NP; ++ch) acc[i][ch] = 0.0f;
@@ -155,7 +158,8 @@ raster_fwd_kernel(const float* __restrict__ means2d,    // (P, 2)
   };
   // this warp's pixel rectangle and its ring of two 32-pair batches; lane l
   // stages, packs and culls pair 32 b + l of batch b
-  const float4 rect = raster::warp_rect(warp, tile_x, kPix, ox, oy);
+  const float4 rect =
+      raster::warp_rect(warp, tile_x, kPix, ox, origin_y + oy);
   float4(*ring)[32][kRec / 4] = reinterpret_cast<float4(*)[32][kRec / 4]>(
       s_rec + warp * kStages * 32 * (kRec / 4));
   const int n_batches = (count + 31) / 32;
@@ -283,12 +287,12 @@ int launch(int num_tiles, int threads, cudaStream_t stream,
            const int* starts, const int* counts, const float* bg,
            float* out_color, float* out_invdepth, float* out_depth,
            float* out_alpha, int* out_n_contrib, float* out_log_t, int width,
-           int height, int tile_x, int tile_y, int grid_x) {
+           int height, int tile_x, int tile_y, int grid_x, int origin_y) {
   raster_fwd_kernel<C, kNContrib>
       <<<num_tiles, threads, ring_bytes(threads), stream>>>(
           means2d, conics, opacities, colors, depths, ids, starts, counts,
           bg, out_color, out_invdepth, out_depth, out_alpha, out_n_contrib,
-          out_log_t, width, height, tile_x, tile_y, grid_x);
+          out_log_t, width, height, tile_x, tile_y, grid_x, origin_y);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -312,7 +316,8 @@ extern "C" int raster_fwd(const void* means2d, const void* conics,
                           void* out_n_contrib, void* out_log_t,
                           int num_tiles, int channels,
                           int width, int height, int tile_x, int tile_y,
-                          int grid_x, int compute_n_contrib, void* stream) {
+                          int grid_x, int origin_y, int compute_n_contrib,
+                          void* stream) {
   const int n = tile_x * tile_y;
   const int pix = pixels_per_thread(compute_n_contrib != 0);
   const int threads = n / pix;
@@ -333,7 +338,7 @@ extern "C" int raster_fwd(const void* means2d, const void* conics,
                         i(ids), i(starts), i(counts), f(bg), o(out_color),    \
                         o(out_invdepth), o(out_depth), o(out_alpha),          \
                         static_cast<int*>(out_n_contrib), o(out_log_t),       \
-                        width, height, tile_x, tile_y, grid_x);
+                        width, height, tile_x, tile_y, grid_x, origin_y);
   switch (channels) {
     RASTER_FWD_CASE(1)
     RASTER_FWD_CASE(2)

@@ -112,9 +112,15 @@ def depth_key(depths: torch.Tensor, depth_bits: int) -> torch.Tensor:
     return bits >> (32 - depth_bits)
 
 
-def _touched(means2d, radii, width, height, tile, tile_y):
+def _touched(means2d, radii, width, height, tile, tile_y, rows=None):
     min_x, max_x, min_y, max_y = gaussian_rects(means2d, radii, width,
                                                 height, tile, tile_y)
+    if rows is not None:
+        # the band's tile rows [row0, row0 + n), in frame coordinates: the
+        # rects are the frame's, cut to the band in integers
+        row0, n = rows
+        min_y = torch.clamp(min_y - row0, 0, n)
+        max_y = torch.clamp(max_y - row0, 0, n)
     _, _, live = _split_radii(radii)
     rect_w = max_x - min_x
     touched = torch.where(live, rect_w * (max_y - min_y),
@@ -123,16 +129,24 @@ def _touched(means2d, radii, width, height, tile, tile_y):
 
 
 def bin_gaussians(means2d, depths, radii, width: int, height: int,
-                  tile: int = TILE, tile_y: int | None = None) -> Binning:
-    """Sorted pair list and per-tile ranges for one frame."""
+                  tile: int = TILE, tile_y: int | None = None,
+                  rows: tuple[int, int] | None = None) -> Binning:
+    """Sorted pair list and per-tile ranges for one frame. `rows` = (row0,
+    n) bins only the band of tile rows [row0, row0 + n) of the frame (rows
+    past the frame's last are empty), tile ids counted from the band's
+    first row: each of its tiles gets the frame's pairs in the frame's
+    order (the sort key keeps the frame's depth bits), which the band
+    render of `parallel/tiles.py` relies on."""
     dev = means2d.device
     P = means2d.shape[0]
     grid_x, grid_y = tile_grid(width, height, tile, tile_y)
+    _, depth_bits = _key_bits(grid_x * grid_y)
+    if rows is not None:
+        grid_y = rows[1]
     num_tiles = grid_x * grid_y
-    _, depth_bits = _key_bits(num_tiles)
 
     touched, min_x, min_y, rect_w = _touched(means2d, radii, width, height,
-                                             tile, tile_y)
+                                             tile, tile_y, rows)
     touched = touched.to(torch.int64)
     total = int(touched.sum())     # the per-frame host sync
     if total == 0:

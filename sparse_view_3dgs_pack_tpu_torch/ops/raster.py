@@ -44,8 +44,11 @@ CULL_SLACK = 64 * 2.0 ** -23
 CULL_MAX_SLACK = 0.25
 CULL_MARGIN = 1.0
 CULL_SPAN = 65536.0
-# plain version: pairs per step of the blend, and the element budget of one
-# (tiles, pixels, pairs) array — bounds its memory whatever a tile's depth
+# plain versions: pairs per step of the blend, and the element budget of
+# one (tiles, pixels, pairs) array — bounds its memory whatever a tile's
+# depth. The forward's steps are all PLAIN_CHUNK long, the last padded: a
+# tile's sums then do not depend on the tiles batched with it (a band
+# render, `parallel/tiles.py`, is bitwise the frame's)
 PLAIN_CHUNK = 256
 PLAIN_MAX_ELEMS = 1 << 22
 
@@ -125,18 +128,21 @@ def _stream(dev):
 def rasterize_forward(means2d, depths, conics, colors, opacities, ids,
                       starts, counts, bg, width: int, height: int,
                       tile_x: int, tile_y: int,
-                      compute_n_contrib: bool = False) -> RasterOutputs:
+                      compute_n_contrib: bool = False,
+                      origin_y: int = 0) -> RasterOutputs:
     """Blend every tile's sorted pair range. CUDA tensors launch the kernel;
     CPU tensors run the plain version. `rasterize_forward.launches` counts
-    kernel launches."""
+    kernel launches. `origin_y` is the image's first row in the frame's
+    pixel coordinates (a band of the frame, `parallel/tiles.py`; the
+    binning's `rows`)."""
     args = (means2d, depths, conics, colors, opacities, ids, starts, counts,
             bg)
     dev = _device_of(args)
     if dev.type == "cuda":
         return _rasterize_forward_cuda(*args, width, height, tile_x, tile_y,
-                                       compute_n_contrib)
+                                       compute_n_contrib, origin_y)
     return rasterize_forward_torch(*args, width, height, tile_x, tile_y,
-                                   compute_n_contrib)
+                                   compute_n_contrib, origin_y)
 
 
 rasterize_forward.launches = 0
@@ -153,7 +159,7 @@ def _bind(lib: ctypes.CDLL, name: str, n_ptrs: int, n_ints: int,
 
 def _rasterize_forward_cuda(means2d, depths, conics, colors, opacities, ids,
                             starts, counts, bg, width, height, tile_x, tile_y,
-                            compute_n_contrib):
+                            compute_n_contrib, origin_y):
     C, grid_x, grid_y = _check(means2d, depths, conics, colors, opacities,
                                ids, starts, counts, bg, width, height,
                                tile_x, tile_y)
@@ -171,14 +177,14 @@ def _rasterize_forward_cuda(means2d, depths, conics, colors, opacities, ids,
         n_contrib = torch.empty((height, width), dtype=torch.int32,
                                 device=dev)
         log_t = torch.empty_like(invdepth)
-    fn = _bind(load("raster_fwd"), "raster_fwd", 15, 8)
+    fn = _bind(load("raster_fwd"), "raster_fwd", 15, 9)
     with torch.cuda.device(dev):
         err = fn(*(t.data_ptr() for t in ins), color.data_ptr(),
                  invdepth.data_ptr(), depth.data_ptr(), alpha.data_ptr(),
                  n_contrib.data_ptr() if compute_n_contrib else None,
                  log_t.data_ptr() if compute_n_contrib else None,
                  grid_x * grid_y, C, width, height, tile_x, tile_y, grid_x,
-                 int(compute_n_contrib), _stream(dev))
+                 origin_y, int(compute_n_contrib), _stream(dev))
     if err != 0:
         raise RuntimeError(f"raster_fwd launch failed: cudaError {err}")
     rasterize_forward.launches += 1
@@ -188,14 +194,15 @@ def _rasterize_forward_cuda(means2d, depths, conics, colors, opacities, ids,
 def rasterize_forward_torch(means2d, depths, conics, colors, opacities, ids,
                             starts, counts, bg, width: int, height: int,
                             tile_x: int, tile_y: int,
-                            compute_n_contrib: bool = False) -> RasterOutputs:
+                            compute_n_contrib: bool = False,
+                            origin_y: int = 0) -> RasterOutputs:
     """Plain PyTorch version of the kernel, on any device.
 
     Tiles are taken in batches of similar pair counts (sorted by count), each
     batch's lists padded to its longest; the pair axis is walked in
-    PLAIN_CHUNK pieces carrying (log_T, done) per pixel, so memory stays near
-    PLAIN_MAX_ELEMS floats per (tiles, pixels, pairs) array whatever the
-    depth of a tile. No per-tile clip."""
+    PLAIN_CHUNK pieces carrying (log_T, done) per pixel, so memory stays
+    near PLAIN_MAX_ELEMS floats per (tiles, pixels, pairs) array whatever
+    the depth of a tile. No per-tile clip."""
     C, grid_x, grid_y = _check(means2d, depths, conics, colors, opacities,
                                ids, starts, counts, bg, width, height,
                                tile_x, tile_y)
@@ -227,14 +234,15 @@ def rasterize_forward_torch(means2d, depths, conics, colors, opacities, ids,
         tsel = order[b0:b0 + tb]
         B = tsel.shape[0]
         px = ((tsel % grid_x) * tile_x).to(torch.float32)[:, None] + lx
-        py = ((tsel // grid_x) * tile_y).to(torch.float32)[:, None] + ly
+        py = ((tsel // grid_x) * tile_y
+              + origin_y).to(torch.float32)[:, None] + ly
         cnt = counts_l[tsel]
         lt = torch.zeros((B, pix), dtype=torch.float32, device=dev)
         done = torch.zeros((B, pix), dtype=torch.bool, device=dev)
         acc_b = torch.zeros((B, pix, C + 2), dtype=torch.float32, device=dev)
         nc = torch.zeros((B, pix), dtype=torch.int32, device=dev)
         for k0 in range(0, kmax, chunk):
-            k = torch.arange(k0, min(k0 + chunk, kmax), device=dev)
+            k = torch.arange(k0, k0 + chunk, device=dev)
             valid = k[None, :] < cnt[:, None]                       # (B, K)
             slot = torch.clamp(starts_l[tsel][:, None] + k[None, :],
                                max=ids.shape[0] - 1)

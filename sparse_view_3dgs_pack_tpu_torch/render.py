@@ -13,7 +13,12 @@ its neural field (`renderer.render_neural`). `--video` also writes the
 `--depth_video` its depth colormap to `video/depth_ours_<iter>.mp4` (cv2
 `mp4v`, FSGS `render.py:55-81`, DNGaussian `spiral.py`). On `--device
 cuda` (the default) frames go through the CUDA rasterizer kernel;
-`--device cpu` runs its plain PyTorch version.
+`--device cpu` runs its plain PyTorch version. `--tile_parallel N` (-1:
+every card) renders each frame in N horizontal bands of tile rows, band b
+on `cuda:<b>` (`parallel/tiles.py`), clamped to the cards there are; on
+`--device cpu` the N bands run one after the other on the CPU. With fewer
+than 2 devices, or a neural field, it renders on one device and says so,
+as the JAX CLI does (`render.py:206-226`).
 """
 
 from __future__ import annotations
@@ -122,15 +127,14 @@ def main(argv=None):
     parser.add_argument("--video", action="store_true")
     parser.add_argument("--depth_video", action="store_true")
     parser.add_argument("--fps", default=30, type=int)
-    parser.add_argument("--tile_parallel", default=0, type=int)
+    parser.add_argument("--tile_parallel", default=0, type=int,
+                        help="render each frame in N bands of tile rows, "
+                             "one a device (-1 = all cards); the Gaussians "
+                             "are projected once and copied to each")
     parser.add_argument("--device", default="cuda",
                         help="cuda (the CUDA kernel) or cpu (its plain "
                              "PyTorch version); never falls back")
     args = get_combined_args(parser, argv)
-    if args.tile_parallel:
-        raise NotImplementedError("--tile_parallel is not ported to the "
-                                  "PyTorch package yet (ROADMAP Queue 1, "
-                                  "multi-GPU)")
     device = resolve_device(args.device)
     with open(os.devnull, "w") as null, \
             contextlib.redirect_stdout(null if args.quiet else sys.stdout):
@@ -154,9 +158,35 @@ def load_model(dataset, iteration, device):
                                     field=load_neural_npz(neural, device))
 
 
+def _tile_parallel(n_req: int, render_fn, scene, device):
+    """`--tile_parallel`: the band-parallel drop-in over n devices, or
+    `render_fn` with the JAX CLI's message where it cannot be used."""
+    from .parallel.tiles import make_tile_parallel_render_fn
+    n_avail = (torch.cuda.device_count() if device.type == "cuda"
+               else max(n_req, 1))
+    n_dev = n_avail if n_req < 0 else min(n_req, n_avail)
+    if render_fn is not render:
+        print("tile_parallel: neural-field rendering active, falling back "
+              "to single-device")
+        return render_fn
+    if n_dev < 2:
+        print(f"tile_parallel: only {n_dev} device(s) available, rendering "
+              "single-device")
+        return render_fn
+    cams = scene.getTrainCameras() or scene.getTestCameras()
+    devices = ([f"cuda:{i}" for i in range(n_dev)] if device.type == "cuda"
+               else ["cpu"] * n_dev)
+    print(f"tile_parallel: band-sharded rendering over {n_dev} devices")
+    return make_tile_parallel_render_fn(devices, cams[0].width,
+                                        cams[0].height)
+
+
 def _render_model(dataset, pipe, args, device):
     print("Rendering " + dataset.model_path)
     scene, render_fn = load_model(dataset, args.iteration, device)
+    if args.tile_parallel:
+        render_fn = _tile_parallel(args.tile_parallel, render_fn, scene,
+                                   device)
     model = scene.gaussians
     bg = [1, 1, 1] if dataset.white_background else [0, 0, 0]
     sh = model.max_sh_degree

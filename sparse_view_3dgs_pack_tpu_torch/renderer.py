@@ -19,7 +19,7 @@ from torch.profiler import record_function
 from .models.gaussians import GaussianModel
 from .models.neural_field import NeuralField, gaussian_outputs
 from .ops.binning import bin_gaussians
-from .ops.projection import project_gaussians
+from .ops.projection import Projected, project_gaussians
 from .ops.raster import make_rasterizer
 
 # Inference tiles (JAX `renderer.py:112-113`): 32×16 cuts the pair count
@@ -49,27 +49,13 @@ def _camera_tensors(cam, device):
             torch.as_tensor(cam.cam_center, **f32))
 
 
-def render_core(params: dict, exposure_mat: torch.Tensor, cam,
-                width: int, height: int, bg_color: torch.Tensor,
-                sh_degree_active: int,
-                scaling_modifier: float = 1.0,
-                antialiasing: bool = False,
-                use_trained_exp: bool = False,
-                override_color: Optional[torch.Tensor] = None,
-                clamp: bool = True,
-                inference: bool = True,
-                confidence=None,
-                opacity_override=None) -> RenderResult:
-    """params: name → tensor (`GaussianModel.params()`), all on one device;
-    cam: `data.cameras.CameraParams` (numpy arrays or tensors).
-
-    inference=False is the differentiable training render: 16×16 tiles and
-    `RasterizeFunction`; the returned `viewspace_points` keeps its gradient.
-    `confidence` (N,) scales each Gaussian's gradients (FSGS, JAX
-    `renderer.py:71-89`): the straight-through p·c + detach(p·(1 − c)),
-    whose forward rounds as the JAX one does. `opacity_override` (N,)
-    takes the place of sigmoid(params["opacity"]): activated opacities
-    (DNGaussian's neural opacity, or its depth pass's constant)."""
+def project_params(params: dict, cam, width: int, height: int,
+                   sh_degree_active: int, scaling_modifier: float = 1.0,
+                   antialiasing: bool = False,
+                   override_color: Optional[torch.Tensor] = None,
+                   confidence=None, opacity_override=None) -> Projected:
+    """The projection stage of `render_core` (its arguments of the same
+    names), under the "render/projection" range."""
     xyz = params["xyz"]
     with record_function("render/projection"):
         viewmat, full_proj, cam_center = _camera_tensors(cam, xyz.device)
@@ -92,7 +78,7 @@ def render_core(params: dict, exposure_mat: torch.Tensor, cam,
             if confidence is not None:
                 sh = scale_grad(sh)
 
-        proj = project_gaussians(
+        return project_gaussians(
             means3d=xyz, scales=scales, quats=quats,
             opacities=opacity, viewmat=viewmat, full_proj=full_proj,
             cam_center=cam_center, tan_fovx=cam.tan_fovx,
@@ -100,6 +86,31 @@ def render_core(params: dict, exposure_mat: torch.Tensor, cam,
             sh_degree=sh_degree_active, colors_precomp=override_color,
             scale_modifier=scaling_modifier, antialiasing=antialiasing)
 
+
+def render_core(params: dict, exposure_mat: torch.Tensor, cam,
+                width: int, height: int, bg_color: torch.Tensor,
+                sh_degree_active: int,
+                scaling_modifier: float = 1.0,
+                antialiasing: bool = False,
+                use_trained_exp: bool = False,
+                override_color: Optional[torch.Tensor] = None,
+                clamp: bool = True,
+                inference: bool = True,
+                confidence=None,
+                opacity_override=None) -> RenderResult:
+    """params: name → tensor (`GaussianModel.params()`), all on one device;
+    cam: `data.cameras.CameraParams` (numpy arrays or tensors).
+
+    inference=False is the differentiable training render: 16×16 tiles and
+    `RasterizeFunction`; the returned `viewspace_points` keeps its gradient.
+    `confidence` (N,) scales each Gaussian's gradients (FSGS, JAX
+    `renderer.py:71-89`): the straight-through p·c + detach(p·(1 − c)),
+    whose forward rounds as the JAX one does. `opacity_override` (N,)
+    takes the place of sigmoid(params["opacity"]): activated opacities
+    (DNGaussian's neural opacity, or its depth pass's constant)."""
+    proj = project_params(params, cam, width, height, sh_degree_active,
+                          scaling_modifier, antialiasing, override_color,
+                          confidence, opacity_override)
     means2d = proj.means2d
     if not inference and means2d.requires_grad:
         means2d.retain_grad()

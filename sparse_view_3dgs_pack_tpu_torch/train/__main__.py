@@ -32,9 +32,18 @@ and the PLY carries `nir_albedo`. `--seed` seeds the host RNGs and the
 camera order (default 0, the JAX CLI's fixed seed). The 3dgs / lgdwt
 loop serves the SIBR remote viewer on `--ip` / `--port` (127.0.0.1:6009;
 `viewer/network_gui.py`) unless `--disable_viewer` is given; the other
-methods train without it, as in the JAX CLI. Not ported yet, and raising
-NotImplementedError: `--data_parallel` other than 1, `--profile`; the
-checkpoint flags apply to the 3dgs / lgdwt loop only, as in the JAX CLI.
+methods train without it, as in the JAX CLI. The checkpoint flags apply to
+the 3dgs / lgdwt loop only, as in the JAX CLI.
+
+`--data_parallel N` (or `auto`: every CUDA card; 1 on the CPU) trains
+3dgs / lgdwt on N views a step (`parallel/dp.py`): the CLI spawns N
+ranks itself, rank r on `cuda:<r>` over NCCL (on `--device cpu`, N
+processes over gloo), joined through a file rendezvous in the model
+directory; N is clamped to the cards there are. Rank 0 alone serves the
+viewer, evaluates, prints and writes. The other methods ignore the flag,
+as in the JAX CLI. `--profile DIR` writes a `torch.profiler` Chrome trace
+of the run (rank 0's under data parallelism) to
+`DIR/train.pt.trace.json`.
 """
 
 from __future__ import annotations
@@ -48,17 +57,6 @@ from ..config import (ModelParams, OptimizationParams, PipelineParams,
                       write_cfg_args)
 from ..device import resolve_device
 from ..utils.general import safe_state
-
-
-def _check_ported(args) -> None:
-    for flag, bad, item in (
-            ("--data_parallel", args.data_parallel not in ("1", "off", ""),
-             12),
-            ("--profile", bool(args.profile), 7)):
-        if bad:
-            raise NotImplementedError(
-                f"{flag} is not ported to the PyTorch package yet (ROADMAP "
-                f"Queue 1 item {item})")
 
 
 def main(argv=None):
@@ -93,15 +91,21 @@ def main(argv=None):
                         default=False,
                         help="FSGS: scale each Gaussian's gradients by its "
                              "confidence (all ones, as in the reference)")
-    parser.add_argument("--profile", type=str, default="")
-    parser.add_argument("--data_parallel", type=str, default="1")
+    parser.add_argument("--profile", type=str, default="",
+                        help="write a torch.profiler Chrome trace of the "
+                             "run to this directory")
+    parser.add_argument("--data_parallel", type=str, default="1",
+                        help="views-per-step data parallelism, one rank a "
+                             "device: an int, or 'auto' for every CUDA "
+                             "card (3dgs/lgdwt methods); ranks wait at most "
+                             "30 minutes in a collective, so a viewer "
+                             "pausing rank 0 longer ends the run")
     parser.add_argument("--device", default="cuda",
                         help="cuda (the CUDA kernels) or cpu (their plain "
                              "PyTorch versions); never falls back")
     parser.add_argument("--seed", type=int, default=0,
                         help="seed of the host RNGs and the camera order")
     args = parser.parse_args(argv)
-    _check_ported(args)
     args.save_iterations.append(args.iterations)
     device = resolve_device(args.device)
 
@@ -111,9 +115,25 @@ def main(argv=None):
     os.makedirs(args.model_path, exist_ok=True)
     write_cfg_args(args.model_path, args)
 
-    from .recipes import train_method
-    result = train_method(known.method, lp.extract(args), op.extract(args),
-                          pp.extract(args), args, device)
+    from ..parallel.dp import (clamp_data_parallel, launch,
+                               resolve_data_parallel)
+    from .recipes import run_profiled, train_method, train_rank
+    groups = (lp.extract(args), op.extract(args), pp.extract(args))
+    n = 1
+    if known.method in ("3dgs", "lgdwt"):
+        n = clamp_data_parallel(
+            resolve_data_parallel(args.data_parallel, device), device)
+    if n > 1:
+        print(f"[dp] data-parallel over {n} devices ({device.type})")
+        devices = ([f"cuda:{r}" for r in range(n)] if device.type == "cuda"
+                   else ["cpu"] * n)
+        launch(train_rank, devices,
+               os.path.join(args.model_path, f".dp_rendezvous_{os.getpid()}"),
+               args=(known.method, *groups, args))
+        result = None
+    else:
+        result = run_profiled(args.profile, device, train_method,
+                              known.method, *groups, args, device)
     print("\nTraining complete.")
     return result
 

@@ -62,9 +62,10 @@ def load_snapshot(path: str):
 
 
 def check_step(pipe, it: int, metrics, model, model_path: str,
-               context: dict | None = None) -> None:
+               context: dict | None = None, write: bool = True) -> None:
     """When debugging is armed, read the step's loss; on a non-finite value
-    dump the snapshot and raise. Unarmed, it returns at once and reads
+    dump the snapshot (unless `write` is False: a data-parallel replica
+    other than rank 0) and raise. Unarmed, it returns at once and reads
     nothing from the device."""
     if not debug_active(pipe, it):
         return
@@ -74,7 +75,8 @@ def check_step(pipe, it: int, metrics, model, model_path: str,
     path = os.path.join(model_path or ".", "snapshot_fw.npz")
     meta = {"iteration": it, "loss": loss}
     meta.update(context or {})
-    dump_snapshot(path, model, meta)
+    if write:
+        dump_snapshot(path, model, meta)
     raise RuntimeError(
         f"[debug] non-finite loss ({loss}) at iteration {it}; step input "
         f"snapshot written to {path} — load with "

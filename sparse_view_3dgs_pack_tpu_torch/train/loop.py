@@ -1,14 +1,18 @@
 """Host training loop for the 3DGS / LGDWT-GS family.
 
 Counterpart of `sparse_view_3dgs_pack_tpu/train/loop.py:116-574` without
-what exists for XLA's static shapes or the TPU mesh: no data parallelism,
-no speculative compiler, no capacity or pair buckets, no lagged pair-count
-readback. The loop serves the SIBR remote viewer when one listens
-(`serve_viewer`), samples cameras without replacement, evaluates the LR
-schedules, runs `train_step`, checks the step when debugging is armed
-(`train/debug.py`), and fires the host events: densify / clone / split /
-prune, opacity reset, SH-degree growth, eval, save, checkpoint
-(`train/checkpoint.py`).
+what exists for XLA's static shapes: no speculative compiler, no capacity
+or pair buckets, no lagged pair-count readback. The loop serves the SIBR
+remote viewer when one listens (`serve_viewer`), samples cameras without
+replacement, evaluates the LR schedules, runs
+`parallel/dp.py::dp_train_step` (one view, or one a rank over a data-
+parallel group; on one view it is `train/step.py::train_step`), checks
+the step when debugging is armed (`train/debug.py`), and fires the host
+events: densify / clone / split / prune, opacity reset, SH-degree growth,
+eval, save, checkpoint (`train/checkpoint.py`). In a data-parallel run
+every rank draws the same cameras, background and densify draws (the
+host RNGs seeded alike, the densify generator by the iteration), so the
+replicas stay bitwise equal; rank 0 alone evaluates, logs and writes.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ import torch
 from ..losses.ssim import ssim as ssim_fn
 from ..metrics.lpips import lpips as lpips_fn
 from ..metrics.lpips import lpips_is_proxy
+from ..parallel.dp import broadcast_state, dp_train_step
 from ..renderer import render
 from ..utils.general import get_expon_lr_func
 from ..utils.image import psnr as psnr_fn
@@ -33,7 +38,7 @@ from . import debug
 from .densify import densify_and_prune, reset_opacity
 from .optim import (init_adam, init_exposure_adam, make_exposure_schedule,
                     make_lr_schedules)
-from .step import CameraBank, StepConfig, train_step
+from .step import CameraBank, StepConfig
 
 
 def evaluate_cameras(model, cameras, bg, active_sh,
@@ -74,9 +79,15 @@ def format_eval(stats: dict) -> str:
 
 
 class Trainer:
-    """Owns the model, optimizer states and schedules on one device."""
+    """Owns the model, optimizer states and schedules on one device.
 
-    def __init__(self, scene, opt, pipe, dataset_args):
+    With a `group` (`parallel/dp.py::DPGroup`) each step trains on one view
+    per rank; rank 0's initial state is broadcast to the others."""
+
+    def __init__(self, scene, opt, pipe, dataset_args, group=None):
+        self.dp_n = group.world_size if group is not None else 1
+        self.group = group
+        self.rank = group.rank if group is not None else 0
         self.scene = scene
         self.opt = opt
         self.pipe = pipe
@@ -106,6 +117,11 @@ class Trainer:
             else [0.0, 0.0, 0.0], device=self.device)[:self.channels]
         self.cfg = self._config()
         self.viewpoint_stack = []
+        self._broadcast()
+
+    def _broadcast(self):
+        broadcast_state(self.group, self.model, self.adam, self.exp_adam,
+                        self.dwt_running_mean)
 
     def _config(self) -> StepConfig:
         o = self.opt
@@ -160,17 +176,21 @@ class Trainer:
         bg = (torch.as_tensor(np.random.random(self.channels),
                               dtype=torch.float32, device=self.device)
               if getattr(o, "random_background", False) else self.background)
-        cam_idx = self.pick_camera()
-        metrics, self.dwt_running_mean = train_step(
+        # every rank draws all dp_n views and takes its own
+        cams = [self.pick_camera() for _ in range(self.dp_n)]
+        metrics, self.dwt_running_mean = dp_train_step(
             self.model, self.adam, self.exp_adam, self.dwt_running_mean,
-            self.bank, cam_idx, lrs, self.exposure_sched(it),
-            self.depth_weight_sched(it), self.active_sh_degree, bg, self.cfg)
+            self.bank, cams[self.rank:self.rank + 1], self.dp_n,
+            lrs, self.exposure_sched(it), self.depth_weight_sched(it),
+            self.active_sh_degree, bg, self.cfg, group=self.group)
 
-        # snapshot on a non-finite loss (the reference's CHECK_CUDA dump)
+        # snapshot on a non-finite loss (the reference's CHECK_CUDA dump);
+        # every replica raises, rank 0 writes
         debug.check_step(self.pipe, it, metrics, self.model,
                          getattr(self.dataset_args, "model_path", "."),
-                         {"cam_idx": cam_idx,
-                          "active_sh_degree": self.active_sh_degree})
+                         {"cam_idx": cams[0] if self.dp_n == 1 else cams,
+                          "active_sh_degree": self.active_sh_degree},
+                         write=self.rank == 0)
 
         # densification events (reference train.py:265-276)
         if it < o.densify_until_iter:
@@ -211,28 +231,36 @@ class Trainer:
         self.start_iteration = c.iteration
         self.active_sh_degree = min(self.iteration // 1000,
                                     self.dataset_args.sh_degree)
+        self._broadcast()
 
 
 def simple_train(scene, opt, pipe, dataset_args, testing_iterations=(),
                  saving_iterations=(), checkpoint_iterations=(),
                  start_checkpoint: Optional[str] = None,
-                 progress: Optional[Callable] = None, tb: bool = True):
+                 progress: Optional[Callable] = None, tb: bool = True,
+                 group=None):
     """The training loop of `loop.py:513-574`: resumes from
     `start_checkpoint` when given, evaluates at `testing_iterations`,
     saves the PLY at `saving_iterations` and a checkpoint
-    (`<model_path>/chkpnt<N>.npz`) at `checkpoint_iterations`."""
+    (`<model_path>/chkpnt<N>.npz`) at `checkpoint_iterations`. With a
+    `group` (`Trainer`: one view a rank), only rank 0 evaluates, reports
+    and writes."""
     from .logging import TrainReporter
 
-    trainer = Trainer(scene, opt, pipe, dataset_args)
+    trainer = Trainer(scene, opt, pipe, dataset_args, group=group)
+    main = trainer.rank == 0
     if start_checkpoint:
         trainer.restore_checkpoint(start_checkpoint)
-        print(f"Resumed from {start_checkpoint} "
-              f"(iteration {trainer.iteration})")
-    reporter = TrainReporter(scene.model_path, enabled=tb)
+        if main:
+            print(f"Resumed from {start_checkpoint} "
+                  f"(iteration {trainer.iteration})")
+    reporter = TrainReporter(scene.model_path, enabled=tb and main)
     t0 = time.time()
     last = t0
     for it in range(trainer.iteration + 1, opt.iterations + 1):
         metrics = trainer.step()
+        if not main:
+            continue
         if progress and it % 10 == 0:
             progress(it, metrics)
         if it % 10 == 0:

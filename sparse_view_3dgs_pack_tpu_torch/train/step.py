@@ -28,9 +28,7 @@ from ..losses.photometric import l1_loss
 from ..losses.ssim import ssim
 from ..models.gaussians import GaussianModel
 from ..renderer import render_core
-from .densify import add_densification_stats
-from .optim import (AdamState, ExposureAdamState, adam_update,
-                    exposure_adam_update)
+from .optim import AdamState, ExposureAdamState
 
 
 class CameraBank(NamedTuple):
@@ -191,10 +189,13 @@ class StepGrads(NamedTuple):
 
 def loss_and_grads(model: GaussianModel, bank: CameraBank, cam_idx: int,
                    depth_weight: float, active_degree: int, bg_color,
-                   dwt_running_mean: torch.Tensor,
-                   cfg: StepConfig) -> StepGrads:
+                   dwt_running_mean: torch.Tensor, cfg: StepConfig,
+                   loss_scale: float = 1.0) -> StepGrads:
     """Forward and `backward()` of one view: the loss and every gradient
-    before the optimizer (what `jax.grad` of `step.py:213-229` gives)."""
+    before the optimizer (what `jax.grad` of `step.py:213-229` gives).
+    The gradients are those of `loss_scale` times the loss (the data-
+    parallel step's 1/B, `parallel/dp.py`); the loss and metrics are the
+    view's own."""
     exposure = model.exposure.detach().requires_grad_(True)
     params = model.params()
     p = dict(params)
@@ -209,7 +210,7 @@ def loss_and_grads(model: GaussianModel, bank: CameraBank, cam_idx: int,
     for t in params.values():
         t.grad = None
     with record_function("step/backward"):
-        loss.backward()
+        (loss if loss_scale == 1.0 else loss * loss_scale).backward()
     grads = {k: (t.grad if t.grad is not None else torch.zeros_like(t))
              for k, t in params.items()}
     vs = res.viewspace_points
@@ -229,16 +230,9 @@ def train_step(model: GaussianModel, adam: AdamState,
                bg_color, cfg: StepConfig):
     """One step: forward, backward, Adam + exposure Adam, densification
     statistics. Updates `model`, `adam`, `exp_adam` in place; returns
-    (metrics, new DWT running mean)."""
-    sg = loss_and_grads(model, bank, cam_idx, depth_weight, active_degree,
-                        bg_color, dwt_running_mean, cfg)
-    with record_function("step/adam"):
-        visibility = (sg.radii > 0) if cfg.sparse_adam else None
-        adam_update(model.params(), sg.grads, adam, lrs,
-                    visibility=visibility)
-        exposure_adam_update(model.exposure, sg.exposure_grad, exp_adam,
-                             exposure_lr)
-    with record_function("step/stats"):
-        add_densification_stats(model, sg.viewspace_grad, sg.radii,
-                                cfg.width, cfg.height)
-    return sg.metrics, sg.new_running
+    (metrics, new DWT running mean). The data-parallel step of one view
+    with no group (`parallel/dp.py::dp_train_step`)."""
+    from ..parallel.dp import dp_train_step     # dp builds on this module
+    return dp_train_step(model, adam, exp_adam, dwt_running_mean, bank,
+                         [cam_idx], 1, lrs, exposure_lr, depth_weight,
+                         active_degree, bg_color, cfg)

@@ -5,7 +5,7 @@ port's render CLI; DNGaussian on a forward-facing scene, its neural field
 read back by the render CLI; mult-dwtgs (and its `train_nir` alias) on a
 forward-facing scene with an NIR band, scored by the render and metrics
 CLIs, and the NIR images the port loads where the JAX CLI loads none;
-flags that are not ported raise (FSGS trains:
+`--data_parallel` over two gloo ranks with `--profile` (FSGS trains:
 `tests/test_torch_fsgs.py::test_fsgs_train_cli_fires_every_mechanism`)."""
 
 import json
@@ -79,14 +79,34 @@ def test_train_cli_writes_the_jax_tree(tmp_path):
     assert sorted(os.listdir(renders)) == ["00000.png", "00001.png"]
 
 
-def test_train_cli_refuses_what_is_not_ported(tmp_path):
+@pytest.mark.timeout(600)
+def test_train_cli_refuses_what_is_not_ported(tmp_path, capfd):
+    """No flag of the train CLI is left unported: `--data_parallel 2
+    --device cpu` trains through two gloo ranks (rank 0 alone prints and
+    writes: one PLY, one save line) and `--profile DIR` writes rank 0's
+    Chrome trace, which names the step's ranges. What the CLI still
+    refuses: CUDA on a machine without it."""
     scene = _scene(tmp_path)
-    base = ["-s", scene, "-m", str(tmp_path / "o"), "--device", "cpu",
-            "--iterations", "1"]
-    for extra, match in ((["--data_parallel", "2"], "data_parallel"),
-                         (["--profile", "trace"], "profile")):
-        with pytest.raises(NotImplementedError, match=match):
-            train_cli.main(base + extra)
+    out, prof = tmp_path / "o", tmp_path / "prof"
+    base = ["-s", scene, "-m", str(out), "--device", "cpu",
+            "--iterations", "4"]
+    train_cli.main(base + ["--disable_viewer", "--patch_size", "16",
+                           "--test_iterations", "4", "--data_parallel", "2",
+                           "--profile", str(prof)])
+    stdout = capfd.readouterr().out
+    assert "[dp] data-parallel over 2 devices (cpu)" in stdout
+    assert stdout.count("Saving Gaussians") == 1
+    assert os.listdir(out / "point_cloud") == ["iteration_4"]
+    state = jax_gm.load_ply(str(out / "point_cloud" / "iteration_4" /
+                                "point_cloud.ply"), sh_degree=3, n_images=6)
+    assert int(state.n_alive) == INIT_POINTS
+    for k, v in state.params.items():
+        assert np.isfinite(np.asarray(v)[:INIT_POINTS]).all(), k
+    with open(prof / "train.pt.trace.json") as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    for stage in ("render/rasterize", "step/losses", "step/backward",
+                  "dp/allreduce", "step/adam", "step/stats"):
+        assert stage in names, stage
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             train_cli.main(base[:4] + ["--iterations", "1"])
