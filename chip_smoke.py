@@ -115,11 +115,22 @@ Phases, one line each or more, any failure exits non-zero:
                2000-point SfM init; the kernels again on a NIR render of
                the trained model
   knn          knn3's kernel against its plain version, bitwise, on the
-               fixture's fused.ply, 300k uniform points and 100k points
-               with far outliers and exact duplicates; its times beside
-               the plain version's and chunked torch.cdist + topk's
+               fixture's fused.ply (its strays listed: finished by a block
+               each), the trained fsgs state, 300k uniform points, 100k
+               points with far outliers and exact duplicates (some
+               listed), and six edge clouds (30 strays in one warp, one
+               point 100k times, 25k points four times each, 4 points, a
+               leaf and a parent plus one); on fused.ply, the uniform and
+               the stress cloud (and in phase nir its SfM init) the
+               kernel's codes, order and leaf and parent boxes bitwise
+               against their plain versions, its work per query warp (box
+               tests, boxes passed, leaves scanned, distance evaluations),
+               listed queries, device ops a call, and its times beside the
+               plain version's and chunked torch.cdist + topk's (the train
+               CLI's init cloud is checked in phase 6)
   probes       `probes.prims` and `probes.fwd_bisect` through their main();
-               each of the six probe kernels against its plain version;
+               each of the six probe kernels against its plain version, and
+               an empty kernel's time (the launch floor under P1-P4);
                D1 (both instantiations), D2 and the forward kernel against
                the two-batch blend expectation on the 800x800 training
                scene and on fwd_bisect's own 800x800 scene, whose pixels
@@ -1161,6 +1172,9 @@ def _train_cli_scene(work: str, device):
     start = gm.create_from_pcd(pcd.points, pcd.colors, n_images=8,
                                sh_degree=3, device=device)
     psnr0 = evaluate_cameras(start, test_cams, [0.0, 0.0, 0.0], 0)["psnr"]
+    _knn_bitwise(torch.as_tensor(np.asarray(pcd.points, np.float32),
+                                 device=device),
+                 "train_cli: points3d.ply (create_from_pcd's scale init)")
     log("train_cli", f"scene {CLI_W}x{CLI_W}, 8 train + 2 test views of a "
                      f"2000-Gaussian cloud, {CLI_INIT_POINTS} start points, "
                      f"in {time.perf_counter() - t0:.1f} s; test PSNR at "
@@ -1455,7 +1469,30 @@ def _probe_small(device) -> dict:
           lambda: probes.pair_alpha_torch(d), err, 1e-6,
           (6 * n + probes.PIX * n) * 4, probes.PIX * n * (SKIP_OPS - 2),
           shape="256 pixels x 256 pairs")
+    _launch_floor(device)
     return out
+
+
+def _launch_floor(device) -> None:
+    """An empty kernel (csrc/probes.cu `probe_launch_floor`, one warp)
+    timed as P1-P4 are: device time from the profiler, and per call from
+    Python with CUDA events around 200 calls. It is the floor under the
+    probes' times."""
+    import ctypes
+
+    from sparse_view_3dgs_pack_tpu_torch.ops import _build
+    fn = _build.load("probes").probe_launch_floor
+    fn.argtypes, fn.restype = [ctypes.c_void_p], ctypes.c_int
+    stream = torch.cuda.current_stream(device).cuda_stream
+
+    def empty():
+        if fn(stream) != 0:
+            raise RuntimeError("probe_launch_floor launch failed")
+
+    ms, call_ms = device_ms(empty, 50), cuda_ms(empty, 200)
+    log("probes", f"launch floor (an empty kernel, one warp): device "
+                  f"{ms * 1e3:.2f} us, {call_ms * 1e3:.2f} us per call from "
+                  f"Python")
 
 
 def _probe_full(device) -> dict:
@@ -1545,13 +1582,13 @@ def _probe_full(device) -> dict:
             bound_ms=b2[0], bound_by=b2[1], library_ms=None, shape=shape)}
 
 
-def _knn_case(pts, label: str) -> dict:
-    """knn3's kernel against its plain version on `pts` (N, 3) on the card:
-    indices and mean d² bitwise; the kernel's, the plain version's and
-    chunked `torch.cdist` + `topk`'s times; the bytes bound."""
+def _knn_bitwise(pts, label: str, listed: bool = False) -> int:
+    """knn3's kernel against its plain version on `pts` (N, 3) on the card,
+    indices and mean d² bitwise. Returns the queries the call listed
+    (finished by a block each); `listed`: fail if there were none."""
     from sparse_view_3dgs_pack_tpu_torch.ops import knn
-    n = pts.shape[0]
     d, i = knn.knn3(pts)
+    n_listed = int(knn.knn3.listed)
     rd, ri = knn.knn3_torch(pts)
     torch.cuda.synchronize()
     if not (torch.equal(i, ri) and torch.equal(d, rd)):
@@ -1559,6 +1596,71 @@ def _knn_case(pts, label: str) -> dict:
         raise AssertionError(f"knn3 {label}: kernel and plain version differ "
                              f"at {bad} points (indices), max |d2| diff "
                              f"{float((d - rd).abs().max()):.3g}")
+    if listed and not n_listed > 0:
+        raise AssertionError(f"knn3 {label}: no query took the listed path")
+    log("knn", f"{label}: {pts.shape[0]} points, kernel vs plain bitwise "
+               f"equal (indices, mean d2; {int((d == 0).sum())} points with "
+               f"3 neighbours at d2 = 0); {n_listed} queries listed")
+    return n_listed
+
+
+def _knn_work(pts, label: str) -> dict:
+    """knn3's work on `pts`: its codes, order and boxes bitwise against
+    `morton_codes_torch` and `tree_boxes_torch`; per query warp the box
+    tests, boxes that passed them, leaves scanned and distance evaluations
+    (mean, max), the listed queries and their leaf tests and distance
+    evaluations; device ops per call (a profile of 5 calls)."""
+    from torch.autograd import DeviceType
+
+    from sparse_view_3dgs_pack_tpu_torch.ops import knn
+    w = knn.knn3_work(pts)
+    codes = knn.morton_codes_torch(pts)
+    order = torch.sort(codes, stable=True).indices
+    leaves, parents = knn.tree_boxes_torch(pts, order)
+    same = torch.equal(w["codes"], codes) and torch.equal(w["order"], order)
+    for got, want, counted in ((w["leaves"], leaves, True),
+                               (w["parents"], parents, False)):
+        same &= (torch.equal(got[:, 0, :3], want.lo)
+                 and torch.equal(got[:, 1, :3], want.hi)
+                 and torch.equal(got[:, 0, 3].view(torch.int32).long(),
+                                 want.least)
+                 and (not counted or torch.equal(
+                     got[:, 1, 3].view(torch.int32).long(), want.count)))
+    if not same:
+        raise AssertionError(f"knn3 {label}: the kernel's codes or boxes "
+                             f"differ from their plain versions")
+    warp = w["warp"].cpu().numpy().astype(np.float64)
+    listed = w["listed"].cpu().numpy().astype(np.float64)
+    spread = lambda a: [float(a.mean()) if a.size else 0.0,
+                        float(a.max()) if a.size else 0.0]
+    events, _ = _trace(lambda: knn.knn3(pts), 5)
+    ops = sum(e.device_type == DeviceType.CUDA for e in events) / 5
+    work = dict(box_tests=spread(warp[:, 0]), passed=spread(warp[:, 1]),
+                leaves_scanned=spread(warp[:, 2]),
+                dist_evals=spread(warp[:, 3]), listed=int(listed.shape[0]),
+                listed_leaf_tests=spread(listed[:, 0]),
+                listed_dist_evals=spread(listed[:, 1]), device_ops=ops)
+    log("knn", f"{label}: codes, order, leaf and parent boxes bitwise equal "
+               f"to the plain versions; per query warp (mean, max) "
+               + ", ".join(f"{k} {v[0]:.1f} / {v[1]:.0f}"
+                           for k, v in work.items() if isinstance(v, list)
+                           and not k.startswith("listed_"))
+               + f"; {work['listed']} queries listed (leaf tests "
+                 f"{work['listed_leaf_tests'][0]:.0f}, distance evaluations "
+                 f"{work['listed_dist_evals'][0]:.0f} each on average); "
+                 f"{ops:g} device ops a call")
+    return work
+
+
+def _knn_case(pts, label: str, listed: bool = False) -> dict:
+    """knn3's kernel against its plain version on `pts` (N, 3) on the card:
+    indices and mean d² bitwise; its work (`_knn_work`); the kernel's, the
+    plain version's and chunked `torch.cdist` + `topk`'s times; the bytes
+    bound."""
+    from sparse_view_3dgs_pack_tpu_torch.ops import knn
+    n = pts.shape[0]
+    _knn_bitwise(pts, label, listed)
+    work = _knn_work(pts, label)
     t_kernel = cuda_ms(lambda: knn.knn3(pts), 10)
     t_plain = cuda_ms(lambda: knn.knn3_torch(pts), 1)
     chunk = max(1, (1 << 27) // n)
@@ -1572,29 +1674,47 @@ def _knn_case(pts, label: str) -> dict:
     # each point read once (12 B), its mean and 3 indices written (16 B);
     # the operations the result needs (three distances a point) are ~0
     b = bound(n * 28, 0)
-    ties = int((d == 0).sum())
-    log("knn", f"{label}: {n} points, kernel vs plain bitwise equal "
-               f"(indices, mean d2; {ties} points with 3 neighbours at "
-               f"d2 = 0); kernel {t_kernel:.3f} ms, plain {t_plain:.2f} ms, "
+    log("knn", f"{label}: kernel {t_kernel:.3f} ms, plain {t_plain:.2f} ms, "
                f"chunked cdist + topk {t_lib:.2f} ms, bound {b[0]:.5f} ms "
                f"by {b[1]}")
     return dict(max_abs_err=0.0, ms=t_kernel, plain_ms=t_plain,
-                bound_ms=b[0], bound_by=b[1], library_ms=t_lib)
+                bound_ms=b[0], bound_by=b[1], library_ms=t_lib, work=work)
 
 
-def phase_knn(fused: str, device) -> dict:
-    """knn3 on the fsgs phase's 30k dense init, a 300k uniform cloud and
-    a 100k cloud of far outliers and exact duplicates. Returns the entry
-    at the dense init's size (what each densify event searches)."""
+def phase_knn(fused: str, trained, device) -> dict:
+    """knn3 on the fsgs phase's 30k dense init (its 30 strays listed), the
+    state it trained to, a 300k uniform cloud, a 100k cloud of far outliers
+    and exact duplicates (some listed), and clouds at the edges of the
+    design: 100k points with 30 strays packed into one warp, 100k copies
+    of one point, 25k points four times each, 4 points, a leaf and a
+    parent plus one point. Returns the entry at the dense init's size
+    (what each densify event searches)."""
     from sparse_view_3dgs_pack_tpu_torch import testing
     from sparse_view_3dgs_pack_tpu_torch.data.ply import fetch_point_cloud
+    from sparse_view_3dgs_pack_tpu_torch.ops import knn
     f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)
     entry = _knn_case(f32(fetch_point_cloud(fused).points),
-                      "3_views/dense/fused.ply")
+                      "3_views/dense/fused.ply", listed=True)
+    _knn_bitwise(trained, "the trained fsgs state")
     rng = np.random.default_rng(5)
     _knn_case(f32(rng.uniform(-2, 2, (KNN_UNIFORM, 3))), "uniform")
     _knn_case(f32(testing.knn_stress_cloud(6, KNN_STRESS)),
-              "outliers and duplicates")
+              "outliers and duplicates", listed=True)
+    # every stray's code above every dense point's: sorted positions
+    # KNN_STRESS to KNN_STRESS + 29, one leaf
+    strays = np.concatenate([rng.uniform(-1, 1, (KNN_STRESS, 3)),
+                             rng.uniform(8, 15, (FSGS_OUTLIERS, 3))])
+    edges = {"30 strays in one warp": strays,
+             "one point 100k times": np.full((KNN_STRESS, 3), 0.25),
+             "25k points four times each": np.repeat(
+                 rng.uniform(-1, 1, (KNN_STRESS // 4, 3)), 4,
+                 axis=0)[rng.permutation(KNN_STRESS)],
+             "4 points": rng.uniform(-1, 1, (4, 3)),
+             "a leaf plus one": rng.uniform(-1, 1, (knn.LEAF + 1, 3)),
+             "a parent plus one": rng.uniform(
+                 -1, 1, (knn.LEAF * knn.FAN + 1, 3))}
+    for label, pts in edges.items():
+        _knn_bitwise(f32(pts), label)
     return entry
 
 
@@ -1751,7 +1871,7 @@ def phase_fsgs(work: str, device) -> dict:
     proj, ba, bg, args, fwd = _fsgs_bwd_args(model, cam, gt, prior, device)
     entries = _train_kernels(proj, ba, bg, args, fwd, cam.width, cam.height,
                              "fsgs", device)
-    entries["knn3"] = phase_knn(fused, device)
+    entries["knn3"] = phase_knn(fused, model.xyz.detach(), device)
     for name, entry in entries.items():
         entry["launches"] = used[name]
     return entries, scene

@@ -24,7 +24,8 @@
 // are laid out so that a warp writes 32 neighbouring floats (D1: one thread
 // per pair, pixel rows in a loop; D2: results staged in shared memory and
 // written by the whole block). P1-P4 work on a few hundred KB and are bound
-// by launch latency.
+// by launch latency; `probe_launch_floor` launches an empty kernel, whose
+// time is that floor.
 //
 // cp.async layout (D1, D2): pairs are loaded by their sorted Gaussian id
 // straight from the per-Gaussian arrays (means2d (P, 2), conics (P, 3),
@@ -375,7 +376,16 @@ tile_blend_kernel(const float* __restrict__ means2d,
 
 int launch_error() { return static_cast<int>(cudaGetLastError()); }
 
+// does nothing: its time is the floor under P1-P4's
+__global__ void empty_kernel() {}
+
 }  // namespace
+
+// One launch of an empty kernel (one warp), the launch floor of the probes.
+extern "C" int probe_launch_floor(void* stream) {
+  empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
+  return launch_error();
+}
 
 // Plain C entry points, bound with ctypes. Each launches on `stream` and
 // returns cudaGetLastError() (cudaErrorInvalidValue for arguments it does
