@@ -15,12 +15,18 @@ through the port's CLIs as subprocesses, once per training seed (the train
 CLI's `--seed`), and writes `summary.json` (each run's `results.json`)
 into the working directory. Arms:
   fsgs_dense    the reference recipe: dense init and depth priors
+  fsgs_sparse   ablation: the sparse SfM init, depth priors
+  fsgs_nodepth  ablation: dense init, no depth prior (and so no pseudo
+                views)
+  fsgs_noprox   ablation: dense init and depth priors, proximity
+                densification off
   dngaussian    DNGaussian with the neural field, depth priors, its 6k
                 schedule (the JAX script's `dngaussian` arm)
   dngaussian_sh the same through the SH colours (`--use_neural 0`), the
                 variant of PARITY.md's JAX record
   3dgs          the few-shot baseline, sparse init
-(the JAX script's ablation arms are not ported).
+The `fsgs_*` and `3dgs` arms pass exactly the JAX script's extra arguments
+(`scripts/fsgs_fewshot_bench.py:198-211`).
 """
 
 from __future__ import annotations
@@ -38,6 +44,13 @@ ARMS = {
     # name: (method, schedule, extra train args)
     "fsgs_dense": ("fsgs", "fsgs", ["--point_cloud_type", "dense",
                                     "--depth_estimator", "precomputed"]),
+    "fsgs_sparse": ("fsgs", "fsgs", ["--point_cloud_type", "sparse",
+                                     "--depth_estimator", "precomputed"]),
+    "fsgs_nodepth": ("fsgs", "fsgs", ["--point_cloud_type", "dense",
+                                      "--depth_estimator", "none"]),
+    "fsgs_noprox": ("fsgs", "fsgs", ["--point_cloud_type", "dense",
+                                     "--depth_estimator", "precomputed",
+                                     "--proximity_until_iter", "0"]),
     "dngaussian": ("dngaussian", "dng", ["--depth_estimator",
                                          "precomputed"]),
     "dngaussian_sh": ("dngaussian", "dng", ["--depth_estimator",

@@ -291,21 +291,35 @@ def train_fsgs(dataset, opt, pipe, args, device) -> dict:
                     and it % opt.densification_interval == 0):
                 _, _, extra_split = fsgs_densify_masks(model, extent,
                                                        dist_thres)
-                counts["distance_splits"] += int(extra_split.sum())
-                densify_and_prune(
+                n_dist = int(extra_split.sum())
+                counts["distance_splits"] += n_dist
+                scale = model.get_scaling().detach().max(dim=-1).values
+                sizes = f"big={int((scale > extent).sum())} max_scale=" \
+                      f"{float(scale.max()):.3f}"
+                res = densify_and_prune(
                     model, adam, opt.densify_grad_threshold, 0.005, extent,
                     max_screen_size=0, percent_dense=opt.percent_dense,
                     generator=torch.Generator(device=device).manual_seed(it),
                     extra_split_mask=extra_split)
                 counts["peak_gaussians"] = max(counts["peak_gaussians"],
                                                model.num_points)
+                appended = 0
                 if it < prox_until:
                     prox_mask, nn_idx, _ = fsgs_densify_masks(
                         model, extent, dist_thres)
-                    counts["proximity_appended"] += proximity_densify(
-                        model, adam, nn_idx, prox_mask)
+                    appended = proximity_densify(model, adam, nn_idx,
+                                                 prox_mask)
+                    counts["proximity_appended"] += appended
                 counts["peak_gaussians"] = max(counts["peak_gaussians"],
                                                model.num_points)
+                # splits count the distance-selected ones, prunes the
+                # split originals; `big`: Gaussians larger than the scene
+                # extent before the event (those the distance split and
+                # proximity may take)
+                print(f"[densify {it}] cloned={res.cloned} split={res.split}"
+                      f" distance_split={n_dist} proximity={appended} "
+                      f"pruned={res.pruned} gaussians={model.num_points} "
+                      f"{sizes}", flush=True)
             if (it > opt.start_sample_pseudo
                     and (it - opt.start_sample_pseudo - 1)
                     % opt.opacity_reset_interval == 0):
@@ -314,8 +328,10 @@ def train_fsgs(dataset, opt, pipe, args, device) -> dict:
         debug.check_step(pipe, it, metrics, model, dataset.model_path,
                          {"cam_idx": cam_idx, "active_sh_degree": active_sh})
         if it % 100 == 0:
+            # the JAX loop's line, then this view's depth-prior term
             print(f"[{it}/{opt.iterations}] loss="
-                  f"{float(metrics['loss']):.5f}", flush=True)
+                  f"{float(metrics['loss']):.5f} depth="
+                  f"{float(metrics['depth']):.5f}", flush=True)
         if it in test_iters or it == opt.iterations:
             for name, views in (("test", scene.getTestCameras()),
                                 ("train", cams[:5])):

@@ -2,8 +2,11 @@
 the depth warp, the pseudo poses and `sample_np`, the precomputed and
 MiDaS depth providers, FSGS's densify masks,
 distance split and proximity densification, the three FSGS steps
-(`fsgs_step`, `fsgs_warped_pseudo_step`, `fsgs_pseudo_step`), and a short
-FSGS run of the train CLI in which every FSGS mechanism fires.
+(`fsgs_step`, `fsgs_warped_pseudo_step`, `fsgs_pseudo_step`), a short
+FSGS run of the train CLI in which every FSGS mechanism fires, both
+packages' whole `train_fsgs` loops held together event by event across
+densification, and the few-shot arms' command lines against the JAX
+script's.
 
 Inputs are made with numpy from a seed and handed to both packages. The
 JAX steps run their XLA tiled path (`use_pallas=False`). Their gradients
@@ -686,3 +689,308 @@ def test_fewshot_arm_commands():
     assert metrics[2] == "sparse_view_3dgs_pack_tpu_torch.metrics"
     assert "--point_cloud_type sparse" in " ".join(fewshot.arm_commands(
         "3dgs", "scene", "out", 40, 48, "cpu")[0])
+
+
+# ------------------------------------------- the whole loop, event by event
+# a differing densify decision is excused when the two sides' float64
+# values of its statistic lie on either side of the threshold and differ by
+# at most this share of it: the states drift apart by float32 rounding
+# compounded over the steps between events (≤ 0.34% of a group's largest
+# entry by the fourth event, measured)
+FLIP_REL = 5e-3
+# end-of-run test PSNR, port against JAX
+LOOP_PSNR_TOL = 0.02
+_LOOP_FLAGS = ["--iterations", "120", "--densify_from_iter", "20",
+               "--densification_interval", "20", "--densify_until_iter",
+               "120", "--proximity_until_iter", "80",
+               "--start_sample_pseudo", "60", "--end_sample_pseudo", "110",
+               "--sample_pseudo_interval", "5", "--densify_grad_threshold",
+               "0.001", "--percent_dense", "0.1"]
+
+
+def _mean3_d2(xyz):
+    """Exact mean squared distance to the 3 nearest other points, float64."""
+    x = np.asarray(xyz, np.float64)
+    d2 = ((x[:, None, :] - x[None, :, :]) ** 2).sum(-1)
+    np.fill_diagonal(d2, np.inf)
+    return np.sort(d2, axis=1)[:, :3].mean(1)
+
+
+def _decisions(accum, denom, scaling, opacity, xyz, extra, opt, extent):
+    """One side's densify decisions replayed from its float32 state: the
+    clone, split and prune masks as the event takes them (the appended
+    rows inherit their source's opacity), the counts, and each statistic
+    in float64 with its threshold, for judging a flip."""
+    accum, denom = np.asarray(accum), np.asarray(denom)
+    g32 = np.where(denom > 0, accum / np.maximum(denom, np.float32(1)),
+                   np.float32(0))
+    ms32 = np.exp(np.asarray(scaling)).max(-1)
+    op32 = 1 / (1 + np.exp(-np.asarray(opacity)[:, 0]))
+    sel = g32 >= np.float32(opt.densify_grad_threshold)
+    split = (sel & (ms32 > opt.percent_dense * extent)) | extra
+    clone = sel & ~split
+    low = op32 < 0.005
+    pruned = int((low | split).sum() + (low & clone).sum()
+                 + 2 * (low & split).sum())
+    g64 = np.where(denom > 0, accum.astype(np.float64)
+                   / np.maximum(denom, 1), 0.0)
+    ms64 = np.exp(np.asarray(scaling, np.float64)).max(-1)
+    op64 = 1 / (1 + np.exp(-np.asarray(opacity, np.float64)[:, 0]))
+    stats = {"grad": (g64, opt.densify_grad_threshold),
+             "scale": (ms64, opt.percent_dense * extent),
+             "opacity": (op64, 0.005), "big": (ms64, extent),
+             "dist": (_mean3_d2(xyz), opt.dist_thres * extent)}
+    return dict(clone=clone, split=split, low=low, extra=extra,
+                cloned=int(clone.sum()), n_split=int(split.sum()),
+                pruned=pruned, stats=stats)
+
+
+def _judge_flips(port, jax_, what):
+    """Every Gaussian whose decisions differ: one of its statistics must
+    straddle its threshold within FLIP_REL (float64 on both sides).
+    Returns the number of such Gaussians."""
+    differ = np.zeros(len(port["clone"]), bool)
+    for k in ("clone", "split", "low", "extra"):
+        differ |= port[k] != jax_[k]
+    for i in np.nonzero(differ)[0]:
+        ok = []
+        for name, (vp, thr) in port["stats"].items():
+            vj = jax_["stats"][name][0][i]
+            ok.append((min(vp[i], vj) <= thr <= max(vp[i], vj))
+                      and abs(vp[i] - vj) <= FLIP_REL * thr)
+        assert any(ok), (f"{what}: Gaussian {i} decides otherwise with no "
+                         f"statistic at a threshold: " + ", ".join(
+                             f"{n} {port['stats'][n][0][i]!r} / "
+                             f"{jax_['stats'][n][0][i]!r} vs {t!r}"
+                             for n, (_, t) in port["stats"].items()))
+    return int(differ.sum())
+
+
+@pytest.mark.timeout(600)
+def test_train_fsgs_loop_matches_jax_across_densify_events(tmp_path,
+                                                            monkeypatch):
+    """Both packages' `train_fsgs` on one 32-px few-shot scene with a dense
+    init, disparity priors and 6 stray points, 120 iterations: densify
+    events at 40, 60, 80 and 100 (proximity at the first two), an opacity
+    reset at 61, warped pseudo steps from 65. Python's `random` is seeded
+    alike, the port starts from JAX's initial state, takes JAX's split
+    draws, and JAX's windowed 3-NN is replaced by the exact search. At
+    every event the Gaussian count, clones, splits, distance splits,
+    prunes and proximity appends must be equal, or each Gaussian deciding
+    otherwise must have a statistic straddling its threshold within
+    FLIP_REL (then the port restarts from JAX's state after the event);
+    the test PSNR at the end agrees within LOOP_PSNR_TOL."""
+    import copy
+    import random
+    from argparse import ArgumentParser, Namespace
+
+    from sparse_view_3dgs_pack_tpu.train import loop as jax_loop
+    from sparse_view_3dgs_pack_tpu_torch.config import (OptimizationParams,
+                                                        PipelineParams)
+
+    scene = testing.write_llff_colmap_scene(
+        str(tmp_path / "scene"), size=32, n_gauss=400, n_dense=300,
+        n_sparse=60, n_outliers=6, device="cpu")
+    parser = ArgumentParser()
+    op, pp = OptimizationParams(parser, "fsgs"), PipelineParams(parser)
+    args = parser.parse_args(_LOOP_FLAGS)
+    opt, pipe = op.extract(args), pp.extract(args)
+    pipe.debug_from = -1
+    jpipe = copy.copy(pipe)   # small XLA pair buffers on the JAX side
+    jpipe.max_pairs, jpipe.max_per_tile, jpipe.tile_batch = 1 << 13, 1024, 16
+
+    def dataset(name):
+        os.makedirs(tmp_path / name)
+        return Namespace(source_path=scene, model_path=str(tmp_path / name),
+                         sh_degree=3, images="images", depths="", eval=True,
+                         train_test_exp=False, n_views=3,
+                         point_cloud_type="dense", resolution=-1,
+                         white_background=False, data_device="cpu")
+    run = Namespace(save_iterations=[], test_iterations=[],
+                    depth_estimator="precomputed")
+
+    # ---- JAX, recording each event's states
+    monkeypatch.setenv("GS_SPECULATIVE_COMPILE", "0")
+    monkeypatch.setattr(jax_fsgs, "knn3", _exact_knn3)
+    jev, jeval, init = [], [], []
+    jax_dp, jax_prox = jax_fsgs.densify_and_prune, jax_fsgs.proximity_densify
+    jax_eval = jax_loop.evaluate_cameras
+
+    def j_densify(state, adam, key, *a, **kw):
+        res = jax_dp(state, adam, key, *a, **kw)
+        jev.append(dict(pre=state, key=key, extra=kw["extra_split_mask"],
+                        res=res, post=(res.state, res.opt_state), prox=0))
+        return res
+
+    def j_prox(state, adam, idx, mask):
+        res = jax_prox(state, adam, idx, mask)
+        jev[-1].update(post=(res.state, res.opt_state),
+                       prox=int(res.appended))
+        return res
+
+    class JaxScene(jax_fsgs.Scene):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            init.append(self.gaussians)
+
+    monkeypatch.setattr(jax_fsgs, "densify_and_prune", j_densify)
+    monkeypatch.setattr(jax_fsgs, "proximity_densify", j_prox)
+    monkeypatch.setattr(jax_fsgs, "Scene", JaxScene)
+    monkeypatch.setattr(jax_loop, "evaluate_cameras",
+                        lambda *a, **kw: jeval.append(jax_eval(*a, **kw))
+                        or jeval[-1])
+    random.seed(0)
+    np.random.seed(0)
+    jax_fsgs.train_fsgs(dataset("jax"), opt, jpipe, run)
+
+    # ---- the port, held to each event
+    rows, flips = [], []
+    port_dp = fsgs_loop.densify_and_prune
+    port_prox = fsgs_loop.proximity_densify
+    port_eval = fsgs_loop.evaluate_cameras
+    pending = []
+
+    def restart(model, adam, e):
+        b = gm.from_jax_state(*e["post"], device="cpu")
+        model.set_rows({k: getattr(b.model, k).detach()
+                        for k in model.row_names()})
+        adam.m.update(b.adam.m)
+        adam.v.update(b.adam.v)
+        assert adam.step == b.adam.step
+
+    def p_densify(model, adam, max_grad, min_opacity, extent, **kw):
+        e = jev[len(rows)]
+        it = kw.pop("generator").initial_seed()
+        pre, n = e["pre"], int(e["pre"].n_alive)
+        assert model.num_points == n, f"iteration {it}: Gaussian count"
+        key, draws = e["key"], []
+        for _ in range(2):
+            key, sub = jax.random.split(key)
+            draws.append(np.asarray(jax.random.normal(sub, (pre.capacity,
+                                                             3)))[:n])
+        extra = kw["extra_split_mask"]
+        dp = _decisions(_np(model.xyz_gradient_accum), _np(model.denom),
+                        _np(model.scaling), _np(model.opacity),
+                        _np(model.xyz), extra.numpy(), opt, extent)
+        dj = _decisions(
+            np.asarray(pre.xyz_gradient_accum)[:n],
+            np.asarray(pre.denom)[:n],
+            np.asarray(pre.params["scaling"])[:n],
+            np.asarray(pre.params["opacity"])[:n],
+            np.asarray(pre.params["xyz"])[:n],
+            np.asarray(e["extra"])[:n], opt, extent)
+        # JAX reports appends and prunes; the replay splits the appends
+        assert dj["cloned"] + 2 * dj["n_split"] == int(e["res"].requested)
+        assert dj["pruned"] == int(e["res"].pruned)
+        res = port_dp(model, adam, max_grad, min_opacity, extent,
+                      noise=torch.tensor(np.stack(draws)), **kw)
+        assert (res.cloned, res.split, res.pruned) == (
+            dp["cloned"], dp["n_split"], dp["pruned"])
+        row = dict(it=it, n=n, cloned=(res.cloned, dj["cloned"]),
+                   split=(res.split, dj["n_split"]),
+                   distance=(int(extra.sum()), int(dj["extra"].sum())),
+                   pruned=(res.pruned, dj["pruned"]), prox=(0, e["prox"]))
+        rows.append(row)
+        if any(row[k][0] != row[k][1]
+               for k in ("cloned", "split", "distance", "pruned")):
+            flips.append((it, _judge_flips(dp, dj, f"iteration {it}")))
+            pending.append(e)
+        if it >= opt.proximity_until_iter and pending:
+            restart(model, adam, pending.pop())
+        return res
+
+    def p_prox(model, adam, idx, mask):
+        appended = port_prox(model, adam, idx, mask)
+        row, e = rows[-1], jev[len(rows) - 1]
+        row["prox"] = (appended, e["prox"])
+        if pending:
+            restart(model, adam, pending.pop())
+        else:
+            assert appended == e["prox"], f"iteration {row['it']}: proximity"
+        return appended
+
+    class PortScene(fsgs_loop.Scene):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.gaussians = gm.from_jax_state(init[0], device="cpu").model
+
+    peval = []
+    monkeypatch.setattr(fsgs_loop, "densify_and_prune", p_densify)
+    monkeypatch.setattr(fsgs_loop, "proximity_densify", p_prox)
+    monkeypatch.setattr(fsgs_loop, "Scene", PortScene)
+    monkeypatch.setattr(fsgs_loop, "evaluate_cameras",
+                        lambda *a, **kw: peval.append(port_eval(*a, **kw))
+                        or peval[-1])
+    random.seed(0)
+    np.random.seed(0)
+    counts = fsgs_loop.train_fsgs(dataset("port"), opt, pipe, run,
+                                  torch.device("cpu"))
+
+    print("\niteration  Gaussians  cloned  split  distance  pruned  "
+          "proximity  (port / JAX)")
+    for r in rows:
+        print(f"{r['it']:9d}  {r['n']:9d}  " + "  ".join(
+            "{} / {}".format(*r[k]) for k in ("cloned", "split", "distance",
+                                              "pruned", "prox")))
+    print("flips (iteration, Gaussians):", flips)
+    assert len(rows) == len(jev) == 4
+    # every mechanism fired: grad splits and clones, distance splits,
+    # proximity appends, opacity prunes after the reset, pseudo steps
+    assert sum(r["cloned"][1] for r in rows) > 0
+    assert sum(r["split"][1] - r["distance"][1] for r in rows) > 0
+    assert sum(r["distance"][1] for r in rows) > 0
+    assert sum(r["prox"][1] for r in rows) > 0
+    assert rows[-1]["pruned"][1] > rows[-1]["split"][1]
+    assert counts["warped_steps"] > 0 and counts["warped_applied"] > 0
+    (jt, _), (pt, _) = jeval, peval          # test views, then train views
+    assert abs(pt["psnr"] - jt["psnr"]) <= LOOP_PSNR_TOL, (pt, jt)
+
+
+def _jax_fewshot_script():
+    """`scripts/fsgs_fewshot_bench.py` as a module (its imports of JAX sit
+    inside the functions that build the scene)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "fsgs_fewshot_bench", os.path.join(REPO, "scripts",
+                                           "fsgs_fewshot_bench.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("arm", ["fsgs_dense", "fsgs_sparse", "fsgs_nodepth",
+                                 "fsgs_noprox", "dngaussian",
+                                 "dngaussian_sh", "3dgs"])
+def test_fewshot_arm_commands_match_the_jax_script(arm, tmp_path,
+                                                   monkeypatch):
+    """Each arm's train, render and metrics command lines are the JAX
+    script's (`run_arm`, its subprocess calls recorded) once the module
+    form, `--device` and `--seed` are set aside; `dngaussian_sh` is the
+    JAX `dngaussian` arm with `--use_neural 0`."""
+    from sparse_view_3dgs_pack_tpu_torch import fewshot
+    script = _jax_fewshot_script()
+    jarm = "dngaussian" if arm == "dngaussian_sh" else arm
+    method, schedule, _ = fewshot.ARMS[arm]
+    assert script.ARMS[jarm][:2] == (method, schedule)
+    iters = 10_000 if schedule == "fsgs" else 6_000
+    calls = []
+    monkeypatch.setattr(script.subprocess, "call",
+                        lambda cmd, **kw: calls.append(cmd) or 0)
+    script.run_arm(jarm, "scene", str(tmp_path), 10_000, 6_000, 400, "py")
+    model = os.path.join(str(tmp_path), jarm)
+    port = fewshot.arm_commands(arm, "scene", model, iters, 400, "cuda",
+                                seed=2)
+    pkg = "sparse_view_3dgs_pack_tpu_torch"
+    for cmd, want, stage in zip(port, calls, ("train", "render",
+                                              "metrics")):
+        assert cmd[1:3] == ["-m", f"{pkg}.{stage}"]
+        rest = cmd[3:]
+        for flag, value in (("--device", "cuda"), ("--seed", "2")):
+            if flag in rest:
+                i = rest.index(flag)
+                assert rest[i + 1] == value
+                del rest[i:i + 2]
+        if arm == "dngaussian_sh" and stage == "train":
+            assert rest[-2:] == ["--use_neural", "0"]
+            rest = rest[:-2]
+        assert ["py", f"{stage}.py", *rest] == want, stage
