@@ -1044,10 +1044,12 @@ def _profile(fn, n: int, prefixes=STAGE_PREFIXES,
     named with `prefixes` per call of `fn` over `n` calls, from
     torch.profiler's CUDA activity."""
     from torch.autograd import DeviceType
+
+    from sparse_view_3dgs_pack_tpu_torch.utils.tracing import PREFIXES
     events, wall = _trace(fn, n, tries)
-    # the ranges' own device-side spans are not work
+    # a range's device-side span is not work (the port's spans leave none)
     dev = [e for e in events if e.device_type == DeviceType.CUDA
-           and not e.name.startswith(STAGE_PREFIXES + tuple(prefixes))]
+           and not e.name.startswith(PREFIXES + tuple(prefixes))]
     if not dev:
         return {}
     spans = sorted((e.time_range.start, e.time_range.end) for e in dev)

@@ -11,6 +11,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils.tracing import span
+
 # cuDNN runs float32 convolutions in TF32 by default (~3 decimal digits);
 # the metric is reported to 1e-4, so its convolutions stay in full f32.
 torch.backends.cudnn.allow_tf32 = False
@@ -30,7 +32,9 @@ def ssim(img1: torch.Tensor, img2: torch.Tensor, window_size: int = 11,
          size_average: bool = True) -> torch.Tensor:
     """img1, img2: (H, W, C) float32. Mean SSIM, or the (H, W, C) map."""
     C = img1.shape[-1]
-    win = torch.as_tensor(_gaussian_window(window_size), device=img1.device)
+    with span("sync/ssim_window"):     # a copy from the host's window
+        win = torch.as_tensor(_gaussian_window(window_size),
+                              device=img1.device)
     win = win.expand(C, 1, window_size, window_size).contiguous()
     x = img1.permute(2, 0, 1)[None].to(torch.float32)
     y = img2.permute(2, 0, 1)[None].to(torch.float32)

@@ -20,6 +20,8 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils.tracing import span
+
 TILE = 16
 
 
@@ -148,7 +150,8 @@ def bin_gaussians(means2d, depths, radii, width: int, height: int,
     touched, min_x, min_y, rect_w = _touched(means2d, radii, width, height,
                                              tile, tile_y, rows)
     touched = touched.to(torch.int64)
-    total = int(touched.sum())     # the per-frame host sync
+    with span("sync/binning_count"):
+        total = int(touched.sum())     # the per-frame host sync
     if total == 0:
         zeros = torch.zeros(num_tiles, dtype=torch.int32, device=dev)
         return Binning(ids=torch.zeros(0, dtype=torch.int32, device=dev),
@@ -169,7 +172,9 @@ def bin_gaussians(means2d, depths, radii, width: int, height: int,
     key = (tile_id << depth_bits) | depth_key(depths, depth_bits)[gid]
     _, order = torch.sort(key, stable=True)
 
-    counts = torch.bincount(tile_id, minlength=num_tiles)
+    # bincount reads the ids' least and largest on the host
+    with span("sync/binning_tiles"):
+        counts = torch.bincount(tile_id, minlength=num_tiles)
     starts = torch.cumsum(counts, 0) - counts
     return Binning(ids=gid[order].to(torch.int32),
                    tile_starts=starts.to(torch.int32),

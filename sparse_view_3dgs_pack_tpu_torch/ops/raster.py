@@ -29,6 +29,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..utils.tracing import span
 from ._build import load
 from .binning import tile_grid
 from .blending import ALPHA_EPS, ALPHA_MAX, LOG_T_EPS, alpha_from_power
@@ -611,7 +612,7 @@ class RasterizeFunction(torch.autograd.Function):
       d_bg     = Σ_pixels T_final · d_color.
     ids/starts/counts and the binning's gaussian_slots/gaussian_offsets
     (the order of the per-Gaussian sum) are integer binning outputs and get
-    no gradient."""
+    no gradient. The backward runs under the "grad/raster" span."""
 
     @staticmethod
     def forward(ctx, means2d, depths, conics, colors, opacities, ids, starts,
@@ -628,24 +629,25 @@ class RasterizeFunction(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, d_color, d_invd, d_depth, d_alpha):
-        (means2d, depths, conics, colors, opacities, ids, starts, counts, bg,
-         slots, offsets, log_t, n_contrib) = ctx.saved_tensors
-        C = colors.shape[-1]
-        cot = [t.contiguous().to(torch.float32)
-               for t in (d_color, d_invd, d_depth, d_alpha)]
-        pairs = rasterize_backward(means2d, depths, conics, colors, opacities,
-                                   ids, starts, counts, bg, log_t, n_contrib,
-                                   *cot, *ctx.dims)
-        per = pairs_to_gaussians(pairs, ids, slots, offsets)
-        finite = torch.isfinite(depths)
-        safe = torch.where(finite, depths, torch.ones_like(depths))
-        d_depths = torch.where(
-            finite, -per[:, 6 + C] / (safe * safe) + per[:, 7 + C],
-            torch.zeros_like(depths))
-        d_bg = (torch.exp(log_t)[..., None] * cot[0]).sum((0, 1))
-        return (per[:, 0:2], d_depths, per[:, 2:5], per[:, 6:6 + C],
-                per[:, 5], None, None, None, d_bg, None, None, None, None,
-                None, None)
+        with span("grad/raster"):
+            (means2d, depths, conics, colors, opacities, ids, starts, counts,
+             bg, slots, offsets, log_t, n_contrib) = ctx.saved_tensors
+            C = colors.shape[-1]
+            cot = [t.contiguous().to(torch.float32)
+                   for t in (d_color, d_invd, d_depth, d_alpha)]
+            pairs = rasterize_backward(means2d, depths, conics, colors,
+                                       opacities, ids, starts, counts, bg,
+                                       log_t, n_contrib, *cot, *ctx.dims)
+            per = pairs_to_gaussians(pairs, ids, slots, offsets)
+            finite = torch.isfinite(depths)
+            safe = torch.where(finite, depths, torch.ones_like(depths))
+            d_depths = torch.where(
+                finite, -per[:, 6 + C] / (safe * safe) + per[:, 7 + C],
+                torch.zeros_like(depths))
+            d_bg = (torch.exp(log_t)[..., None] * cot[0]).sum((0, 1))
+            return (per[:, 0:2], d_depths, per[:, 2:5], per[:, 6:6 + C],
+                    per[:, 5], None, None, None, d_bg, None, None, None,
+                    None, None, None)
 
 
 def make_rasterizer(width: int, height: int, channels: int,

@@ -40,13 +40,13 @@ from typing import NamedTuple, Optional
 
 import torch
 import torch.distributed as dist
-from torch.profiler import record_function
 
 from ..device import resolve_device
 from ..models.gaussians import STAT_NAMES, GaussianModel
 from ..train.optim import (AdamState, ExposureAdamState, adam_update,
                            exposure_adam_update)
 from ..train.step import CameraBank, StepConfig, loss_and_grads
+from ..utils.tracing import span
 
 # How long a rank waits in a collective before the group fails: a viewer
 # that holds training on rank 0 (`keep_alive`) holds the other ranks in
@@ -166,8 +166,9 @@ def batch_stats(go: torch.Tensor, radii: torch.Tensor, width: int,
     """go (B, N, 2) view-space gradients and radii (B, N) of B views →
     (N,) summed norms at the (W/2, H/2) scale over the views that see each
     Gaussian, (N,) their count, (N,) the largest radius."""
-    scale = torch.tensor([width * 0.5, height * 0.5], dtype=torch.float32,
-                         device=go.device)
+    with span("sync/stats_scale"):     # a copy of host numbers
+        scale = torch.tensor([width * 0.5, height * 0.5],
+                             dtype=torch.float32, device=go.device)
     g = torch.linalg.vector_norm(go[..., :2] * scale, dim=-1)
     visible = radii > 0
     return (torch.where(visible, g, torch.zeros_like(g)).sum(0),
@@ -228,7 +229,7 @@ def dp_train_step(model: GaussianModel, adam: AdamState,
         sg = loss_and_grads(model, bank, cam_idx, depth_weight,
                             active_degree, bg_color, dwt_running_mean, cfg,
                             loss_scale=scale)
-        with record_function("step/stats"):
+        with span("step/stats"):
             g, c, r = batch_stats(sg.viewspace_grad[None], sg.radii[None],
                                   cfg.width, cfg.height)
         norms, counts = _add(norms, g), _add(counts, c)
@@ -246,7 +247,7 @@ def dp_train_step(model: GaussianModel, adam: AdamState,
     sums = ([grads[k] for k in names] + [exp_grad, norms, counts, run_sum]
             + [metric_sums[k] for k in keys])
     if group is not None:
-        with record_function("dp/allreduce"):
+        with span("dp/allreduce"):
             sums = _all_reduce(sums, dist.ReduceOp.SUM, group.pg,
                                torch.float32)
             max_r, n_pairs = _all_reduce(
@@ -255,12 +256,12 @@ def dp_train_step(model: GaussianModel, adam: AdamState,
                 dist.ReduceOp.MAX, group.pg, torch.float64)
     grads = dict(zip(names, sums))
     exp_grad, norms, counts, run_sum = sums[len(names):len(names) + 4]
-    with record_function("step/adam"):
+    with span("step/adam"):
         visibility = (max_r > 0) if cfg.sparse_adam else None
         adam_update(model.params(), grads, adam, lrs, visibility=visibility)
         exposure_adam_update(model.exposure, exp_grad, exp_adam,
                              exposure_lr)
-    with record_function("step/stats"):
+    with span("step/stats"):
         apply_stats(model, norms, counts, max_r)
     metrics = {k: v / n_views for k, v in zip(keys, sums[len(names) + 4:])}
     metrics["n_pairs"] = int(n_pairs)

@@ -4,9 +4,10 @@ Counterpart of `sparse_view_3dgs_pack_tpu/renderer.py:27-272`. Inference
 (render, eval, scoring) and training renders share `render_core`; a model
 on a CUDA device goes through the hand-written kernels (`csrc/raster_fwd.cu`,
 and `csrc/raster_bwd.cu` for the training render's backward), a model on
-the CPU through their plain PyTorch versions. The stages run under
-`torch.profiler.record_function` ranges named "render/<stage>", which a
-profile reads (`chip_smoke.py`).
+the CPU through their plain PyTorch versions. The stages run under the
+spans "render/<stage>" (`utils/tracing.py`), which a profile reads
+(`chip_smoke.py`); a training render's projection backward under
+"grad/projection"; an inference frame's host work under "host/frame".
 """
 
 from __future__ import annotations
@@ -14,13 +15,13 @@ from __future__ import annotations
 from typing import NamedTuple, Optional
 
 import torch
-from torch.profiler import record_function
 
 from .models.gaussians import GaussianModel
 from .models.neural_field import NeuralField, gaussian_outputs
 from .ops.binning import bin_gaussians
 from .ops.projection import Projected, project_gaussians
 from .ops.raster import make_rasterizer
+from .utils.tracing import grad_span, span
 
 # Inference tiles (JAX `renderer.py:112-113`): 32×16 cuts the pair count
 # against 16×16 (less horizontal duplication) and halves the tile count.
@@ -44,9 +45,13 @@ class RenderResult(NamedTuple):
 
 def _camera_tensors(cam, device):
     f32 = dict(dtype=torch.float32, device=device)
-    return (torch.as_tensor(cam.viewmat, **f32),
-            torch.as_tensor(cam.full_proj, **f32),
-            torch.as_tensor(cam.cam_center, **f32))
+    # a camera of host arrays (the viewer's) is three copies to the card,
+    # each of which waits for it
+    host = not torch.is_tensor(cam.viewmat) or cam.viewmat.device != device
+    with span("sync/camera", on=host):
+        return (torch.as_tensor(cam.viewmat, **f32),
+                torch.as_tensor(cam.full_proj, **f32),
+                torch.as_tensor(cam.cam_center, **f32))
 
 
 def project_params(params: dict, cam, width: int, height: int,
@@ -55,14 +60,21 @@ def project_params(params: dict, cam, width: int, height: int,
                    override_color: Optional[torch.Tensor] = None,
                    confidence=None, opacity_override=None) -> Projected:
     """The projection stage of `render_core` (its arguments of the same
-    names), under the "render/projection" range."""
+    names), under the "render/projection" span; its backward, from the
+    gradients of the outputs to those of the parameters it reads, under
+    "grad/projection"."""
     xyz = params["xyz"]
-    with record_function("render/projection"):
+    with span("render/projection"):
         viewmat, full_proj, cam_center = _camera_tensors(cam, xyz.device)
-        scales = torch.exp(params["scaling"])
-        opacity = (torch.sigmoid(params["opacity"][:, 0])
+        g = grad_span("grad/projection")
+        (xyz, log_scales, logit_opacity, quats, f_dc, f_rest, override_color,
+         opacity_override) = g.inputs(
+            xyz, params["scaling"], params["opacity"], params["rotation"],
+            params["features_dc"], params["features_rest"], override_color,
+            opacity_override)
+        scales = torch.exp(log_scales)
+        opacity = (torch.sigmoid(logit_opacity[:, 0])
                    if opacity_override is None else opacity_override)
-        quats = params["rotation"]
 
         if confidence is not None:
             def scale_grad(p):
@@ -73,18 +85,22 @@ def project_params(params: dict, cam, width: int, height: int,
 
         sh = None
         if override_color is None:
-            sh = torch.cat([params["features_dc"], params["features_rest"]],
-                           1)
+            sh = torch.cat([f_dc, f_rest], 1)
             if confidence is not None:
                 sh = scale_grad(sh)
 
-        return project_gaussians(
+        proj = project_gaussians(
             means3d=xyz, scales=scales, quats=quats,
             opacities=opacity, viewmat=viewmat, full_proj=full_proj,
             cam_center=cam_center, tan_fovx=cam.tan_fovx,
             tan_fovy=cam.tan_fovy, width=width, height=height, sh=sh,
             sh_degree=sh_degree_active, colors_precomp=override_color,
             scale_modifier=scaling_modifier, antialiasing=antialiasing)
+        means2d, depths, conics, colors, opacities = g.outputs(
+            proj.means2d, proj.depths, proj.conics, proj.colors,
+            proj.opacities)
+        return proj._replace(means2d=means2d, depths=depths, conics=conics,
+                             colors=colors, opacities=opacities)
 
 
 def render_core(params: dict, exposure_mat: torch.Tensor, cam,
@@ -116,7 +132,7 @@ def render_core(params: dict, exposure_mat: torch.Tensor, cam,
         means2d.retain_grad()
     tx, ty = ((INFER_TILE_X, INFER_TILE_Y) if inference
               else (TRAIN_TILE_X, TRAIN_TILE_Y))
-    with record_function("render/binning"):
+    with span("render/binning"):
         ba = bin_gaussians(means2d.detach(), proj.depths.detach(),
                            proj.rect_radii, width, height, tx, ty)
         # the backward's per-Gaussian order; a render never reads it
@@ -124,7 +140,7 @@ def render_core(params: dict, exposure_mat: torch.Tensor, cam,
                  else (ba.gaussian_slots, ba.gaussian_offsets))
     raster = make_rasterizer(width, height, proj.colors.shape[-1],
                              inference=inference, tile_x=tx, tile_y=ty)
-    with record_function("render/rasterize"):
+    with span("render/rasterize"):
         color, invdepth, depth, alpha = raster(
             means2d.contiguous(), proj.depths.contiguous(),
             proj.conics.contiguous(), proj.colors.contiguous(),
@@ -148,17 +164,22 @@ def render(model: GaussianModel, camera, bg_color,
            use_trained_exp: bool = False, exposure_idx: int = 0,
            override_color: Optional[torch.Tensor] = None) -> RenderResult:
     """Inference render of `model` (on its own device) from a
-    `data.cameras.Camera` or `MiniCam`."""
-    device = model.xyz.device
-    if sh_degree_active is None:
-        sh_degree_active = model.max_sh_degree
-    exposure_mat = model.exposure[min(exposure_idx,
-                                      model.exposure.shape[0] - 1)]
-    bg = torch.as_tensor(bg_color, dtype=torch.float32, device=device)
-    return render_core(model.params(), exposure_mat, camera.params(),
-                       camera.width, camera.height, bg, sh_degree_active,
-                       scaling_modifier, antialiasing, use_trained_exp,
-                       override_color, inference=True)
+    `data.cameras.Camera` or `MiniCam`, under the "host/frame" span."""
+    with span("host/frame"):
+        device = model.xyz.device
+        if sh_degree_active is None:
+            sh_degree_active = model.max_sh_degree
+        exposure_mat = model.exposure[min(exposure_idx,
+                                          model.exposure.shape[0] - 1)]
+        host_bg = (not torch.is_tensor(bg_color)
+                   or bg_color.device != device)
+        with span("sync/background", on=host_bg):
+            bg = torch.as_tensor(bg_color, dtype=torch.float32,
+                                 device=device)
+        return render_core(model.params(), exposure_mat, camera.params(),
+                           camera.width, camera.height, bg,
+                           sh_degree_active, scaling_modifier, antialiasing,
+                           use_trained_exp, override_color, inference=True)
 
 
 @torch.no_grad()

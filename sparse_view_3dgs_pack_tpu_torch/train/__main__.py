@@ -43,7 +43,10 @@ directory; N is clamped to the cards there are. Rank 0 alone serves the
 viewer, evaluates, prints and writes. The other methods ignore the flag,
 as in the JAX CLI. `--profile DIR` writes a `torch.profiler` Chrome trace
 of the run (rank 0's under data parallelism) to
-`DIR/train.pt.trace.json`.
+`DIR/train.pt.trace.json`, with the port's spans (`utils/tracing.py`):
+the stages `render/…`, `step/…`, `dp/…`; each layer's backward
+`grad/losses`, `grad/raster`, `grad/projection`; each wait for the card
+`sync/<site>`; the host code between them `host/…`.
 """
 
 from __future__ import annotations
@@ -93,7 +96,11 @@ def main(argv=None):
                              "confidence (all ones, as in the reference)")
     parser.add_argument("--profile", type=str, default="",
                         help="write a torch.profiler Chrome trace of the "
-                             "run to this directory")
+                             "run to this directory; its spans: the stages "
+                             "render/, step/, dp/, each layer's backward "
+                             "grad/losses|raster|projection, each wait for "
+                             "the card sync/<site>, the host code between "
+                             "them host/")
     parser.add_argument("--data_parallel", type=str, default="1",
                         help="views-per-step data parallelism, one rank a "
                              "device: an int, or 'auto' for every CUDA "

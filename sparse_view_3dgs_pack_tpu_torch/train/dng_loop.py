@@ -23,7 +23,7 @@ detaches it (its moments still move it); the field's own AdamState steps
 in the soft and photometric passes. One patch size per iteration, drawn
 from 5–16, serves the four patch-norm losses (PARITY.md "Known
 deviations"); it and the camera order come from a `random.Random(seed)`.
-The passes run under the `torch.profiler.record_function` ranges
+The passes run under the spans (`utils/tracing.py`)
 "dng/hard", "dng/soft" and "dng/photo".
 """
 
@@ -36,7 +36,6 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..depth.estimator import get_depth_estimator
 from ..losses.dng import (loss_depth_smoothness, patch_norm_mse_loss,
@@ -50,6 +49,7 @@ from ..renderer import render, render_core, render_neural
 from ..scene import Scene
 from ..utils.image import psnr
 from ..utils.pose_utils import generate_spiral_path
+from ..utils.tracing import span
 from . import debug
 from .densify import add_densification_stats, densify_and_prune, prune_only
 from .loop import format_eval
@@ -144,7 +144,7 @@ def hard_pass(model, adam, view: _View, patch_idx, lrs, band, bg,
               cfg: DNGConfig) -> torch.Tensor:
     """Pass 1: the depth losses of a render at opacity 0.95 with unit
     colours; only xyz gets a gradient. One Adam step of every group."""
-    with record_function("dng/hard"):
+    with span("dng/hard"):
         params, p = _banded(model, band, ("scaling", "rotation"))
         n = model.num_points
         res = _render(p, view.cam, bg, cfg,
@@ -162,7 +162,7 @@ def soft_pass(model, field, adam, field_adam, view: _View, patch_idx, lrs,
     """Pass 2: the depth losses with the geometry detached; the opacity
     (through the field when `use_neural`) gets the gradient. One Adam step
     of every group and of the field."""
-    with record_function("dng/soft"):
+    with span("dng/soft"):
         params, p = _banded(model, band, ("xyz", "scaling", "rotation"))
         fparams = field.params()
         for t in fparams.values():
@@ -187,7 +187,7 @@ def photo_pass(model, field, adam, field_adam, view: _View, lrs, field_lrs,
     opacity penalty, both with gradient (JAX `dng_loop.py:209-241`). One
     Adam step of every group and of the field, then the densification
     statistics."""
-    with record_function("dng/photo"):
+    with span("dng/photo"):
         params, p = _banded(model, band)
         fparams = field.params()
         for t in fparams.values():

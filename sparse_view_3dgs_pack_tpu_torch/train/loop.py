@@ -32,6 +32,7 @@ from ..parallel.dp import broadcast_state, dp_train_step
 from ..renderer import render
 from ..utils.general import get_expon_lr_func
 from ..utils.image import psnr as psnr_fn
+from ..utils.tracing import span
 from ..viewer import network_gui
 from . import checkpoint as ckpt
 from . import debug
@@ -166,24 +167,41 @@ class Trainer:
             random.randint(0, len(self.viewpoint_stack) - 1))
 
     def step(self) -> dict:
-        self.iteration += 1
-        it = self.iteration
-        o = self.opt
-        self.serve_viewer()
-        if it % 1000 == 0 and self.active_sh_degree < self.dataset_args.sh_degree:
-            self.active_sh_degree += 1
-        lrs = {k: f(it) for k, f in self.lr_scheds.items()}
-        bg = (torch.as_tensor(np.random.random(self.channels),
-                              dtype=torch.float32, device=self.device)
-              if getattr(o, "random_background", False) else self.background)
-        # every rank draws all dp_n views and takes its own
-        cams = [self.pick_camera() for _ in range(self.dp_n)]
-        metrics, self.dwt_running_mean = dp_train_step(
-            self.model, self.adam, self.exp_adam, self.dwt_running_mean,
-            self.bank, cams[self.rank:self.rank + 1], self.dp_n,
-            lrs, self.exposure_sched(it), self.depth_weight_sched(it),
-            self.active_sh_degree, bg, self.cfg, group=self.group)
+        """One training step, under the "host/step" span: "host/prepare"
+        (the viewer, the schedules, the background, the view), the step
+        of `parallel/dp.py`, then "host/finish" (the debug check and the
+        densification events)."""
+        with span("host/step"):
+            with span("host/prepare"):
+                self.iteration += 1
+                it = self.iteration
+                o = self.opt
+                self.serve_viewer()
+                if (it % 1000 == 0
+                        and self.active_sh_degree < self.dataset_args.sh_degree):
+                    self.active_sh_degree += 1
+                lrs = {k: f(it) for k, f in self.lr_scheds.items()}
+                random_bg = getattr(o, "random_background", False)
+                with span("sync/background", on=random_bg):
+                    bg = (torch.as_tensor(np.random.random(self.channels),
+                                          dtype=torch.float32,
+                                          device=self.device)
+                          if random_bg else self.background)
+                # every rank draws all dp_n views and takes its own
+                cams = [self.pick_camera() for _ in range(self.dp_n)]
+                exposure_lr = self.exposure_sched(it)
+                depth_weight = self.depth_weight_sched(it)
+            metrics, self.dwt_running_mean = dp_train_step(
+                self.model, self.adam, self.exp_adam, self.dwt_running_mean,
+                self.bank, cams[self.rank:self.rank + 1], self.dp_n,
+                lrs, exposure_lr, depth_weight, self.active_sh_degree, bg,
+                self.cfg, group=self.group)
+            with span("host/finish"):
+                self._finish(it, cams, metrics)
+            return metrics
 
+    def _finish(self, it: int, cams: list, metrics: dict) -> None:
+        o = self.opt
         # snapshot on a non-finite loss (the reference's CHECK_CUDA dump);
         # every replica raises, rank 0 writes
         debug.check_step(self.pipe, it, metrics, self.model,
@@ -205,7 +223,6 @@ class Trainer:
                     or (self.dataset_args.white_background
                         and it == o.densify_from_iter)):
                 reset_opacity(self.model, self.adam)
-        return metrics
 
     def evaluate(self, cameras) -> dict:
         return evaluate_cameras(self.model, cameras, self.background,

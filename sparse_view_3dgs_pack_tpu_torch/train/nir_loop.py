@@ -16,8 +16,8 @@ shapes. One step renders the view twice from the same Gaussians:
 then one backward and one Adam step over every group. The densification
 statistics come from the RGB render's screen-space gradient only (JAX
 passes the offset to the RGB pass alone, `nir_loop.py:93-97`). The passes
-run under the `torch.profiler.record_function` ranges "nir/rgb",
-"nir/nir", "nir/backward", "nir/adam" and "nir/stats".
+run under the spans (`utils/tracing.py`) "nir/rgb", "nir/nir",
+"nir/backward", "nir/adam" and "nir/stats".
 """
 
 from __future__ import annotations
@@ -27,12 +27,12 @@ import time
 from typing import NamedTuple
 
 import torch
-from torch.profiler import record_function
 
 from ..losses.nir import combined_nir_loss
 from ..models.gaussians import GaussianModel
 from ..renderer import render_core
 from ..scene import Scene
+from ..utils.tracing import span
 from . import debug
 from .densify import add_densification_stats, densify_and_prune, reset_opacity
 from .optim import (AdamState, adam_update, grads_or_zeros, init_adam,
@@ -72,12 +72,12 @@ def nir_step(model: GaussianModel, adam: AdamState,
     cam = bank.camera(cam_idx)
     alpha_mask = bank.alpha_mask[cam_idx]
     eye = torch.eye(3, 4, device=device)
-    with record_function("nir/rgb"):
+    with span("nir/rgb"):
         res = render_core(p, eye, cam, b.width, b.height, bg,
                           sh_degree_active=b.sh_degree, inference=False)
         loss, metrics, new_running = photometric_losses(
             res.render * alpha_mask, bank.gt[cam_idx], dwt_running_mean, b)
-    with record_function("nir/nir"):
+    with span("nir/nir"):
         nres = render_core(p, eye, cam, b.width, b.height,
                            torch.zeros(1, device=device),
                            sh_degree_active=b.sh_degree,
@@ -86,11 +86,11 @@ def nir_step(model: GaussianModel, adam: AdamState,
         nir_pred = nres.render[..., 0] * alpha_mask[..., 0]
         nloss = combined_nir_loss(nir_pred, bank.nir[cam_idx])
         loss = loss + cfg.nir_weight * nloss
-    with record_function("nir/backward"):
+    with span("nir/backward"):
         loss.backward()
-    with record_function("nir/adam"):
+    with span("nir/adam"):
         adam_update(model.params(), grads_or_zeros(params), adam, lrs)
-    with record_function("nir/stats"):
+    with span("nir/stats"):
         vs = res.viewspace_points
         add_densification_stats(
             model, vs.grad if vs.grad is not None else torch.zeros_like(vs),

@@ -21,6 +21,7 @@ from typing import Callable, Optional
 import torch
 
 from ..utils.general import get_expon_lr_func
+from ..utils.tracing import span
 
 BETA1, BETA2 = 0.9, 0.999
 EPS = 1e-15
@@ -90,10 +91,12 @@ def grads_or_zeros(params: dict) -> dict:
 
 
 def _bias_corrections(step: int, device):
-    """1 - β^t in float32, as the JAX update computes them."""
-    t = torch.tensor(float(step), dtype=torch.float32, device=device)
-    b1 = torch.tensor(BETA1, dtype=torch.float32, device=device)
-    b2 = torch.tensor(BETA2, dtype=torch.float32, device=device)
+    """1 - β^t in float32, as the JAX update computes them (three copies
+    of host numbers to the device, each of which waits for it)."""
+    with span("sync/adam_bias"):
+        t = torch.tensor(float(step), dtype=torch.float32, device=device)
+        b1 = torch.tensor(BETA1, dtype=torch.float32, device=device)
+        b2 = torch.tensor(BETA2, dtype=torch.float32, device=device)
     return 1.0 - b1 ** t, 1.0 - b2 ** t
 
 

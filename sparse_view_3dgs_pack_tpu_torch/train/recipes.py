@@ -122,8 +122,9 @@ def train_rank(group, method: str, dataset, opt, pipe, args) -> None:
 def run_profiled(profile_dir: str, device, fn, *fn_args):
     """fn(*fn_args), under `torch.profiler` (CPU, and CUDA activity on a
     card) when `profile_dir` is given: a Chrome trace
-    `<profile_dir>/train.pt.trace.json` of the whole call, whose ranges
-    name the stages (`render/…`, `step/…`, `dp/…`). A profiler that cannot
+    `<profile_dir>/train.pt.trace.json` of the whole call, whose spans
+    (`utils/tracing.py`) name the stages (`render/…`, `step/…`, `dp/…`)
+    and the work inside them (`grad/…`, `sync/…`, `host/…`). A profiler that cannot
     start prints `[profiler] disabled (…)` and the call runs on, as the
     JAX CLI does."""
     if not profile_dir:

@@ -6,9 +6,12 @@ one `backward()`, the per-group Adam and exposure Adam updates, and the
 densification statistics (reference hot loop `LGDWT-GS/train.py:81-292`).
 The JAX step is one jitted XLA program; here PyTorch runs eagerly and the
 rasterizer's forward and backward are the hand-written kernels on a card.
-The stages run under `torch.profiler.record_function` ranges ("render/…"
-in `renderer.render_core`, "step/losses", "step/backward", "step/adam",
-"step/stats" here), which a profile of the step reads (`chip_smoke.py`).
+The stages run under the spans of `utils/tracing.py` ("render/…" in
+`renderer.render_core`, "step/losses", "step/backward" here, "step/adam"
+and "step/stats" in `parallel/dp.py`), which a profile of the step reads
+(`chip_smoke.py`); inside the backward, the losses' gradient runs under
+"grad/losses", the rasterizer's under "grad/raster" and the projection's
+under "grad/projection".
 """
 
 from __future__ import annotations
@@ -17,7 +20,6 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..data.cameras import CameraParams
 from ..device import resolve_device
@@ -28,6 +30,7 @@ from ..losses.photometric import l1_loss
 from ..losses.ssim import ssim
 from ..models.gaussians import GaussianModel
 from ..renderer import render_core
+from ..utils.tracing import grad_span, span
 from .optim import AdamState, ExposureAdamState
 
 
@@ -161,17 +164,21 @@ def view_losses(p: dict, exposure_mat, cam, gt, alpha_mask, mono_invdepth,
                 dwt_running_mean: torch.Tensor, cfg: StepConfig):
     """The full per-view training loss (`step.py:140-194`): the
     photometric losses plus depth-L1. `p` already carries the SH band
-    mask. Returns (loss, metrics, new_running, render result)."""
+    mask. Returns (loss, metrics, new_running, render result). The
+    backward from the loss to the render's image and depth runs under
+    "grad/losses"."""
     res = render_core(
         p, exposure_mat, cam, cfg.width, cfg.height, bg_color,
         sh_degree_active=cfg.sh_degree, antialiasing=cfg.antialiasing,
         use_trained_exp=cfg.train_test_exp, inference=False)
-    with record_function("step/losses"):
+    with span("step/losses"):
+        g = grad_span("grad/losses")
+        image, invdepth = g.inputs(res.render, res.depth)
         loss, metrics, new_running = photometric_losses(
-            res.render * alpha_mask, gt, dwt_running_mean, cfg)
+            image * alpha_mask, gt, dwt_running_mean, cfg)
         metrics["n_pairs"] = res.n_pairs
-        depth_term = depth_l1_loss(res.depth, mono_invdepth, depth_mask)
-        loss = loss + depth_weight * has_depth * depth_term
+        depth_term = depth_l1_loss(invdepth, mono_invdepth, depth_mask)
+        (loss,) = g.outputs(loss + depth_weight * has_depth * depth_term)
         metrics["depth_l1"] = (depth_term * has_depth).detach()
         metrics["loss"] = loss.detach()
     return loss, metrics, new_running.detach(), res
@@ -196,20 +203,22 @@ def loss_and_grads(model: GaussianModel, bank: CameraBank, cam_idx: int,
     The gradients are those of `loss_scale` times the loss (the data-
     parallel step's 1/B, `parallel/dp.py`); the loss and metrics are the
     view's own."""
-    exposure = model.exposure.detach().requires_grad_(True)
-    params = model.params()
-    p = dict(params)
-    band = sh_band_mask(active_degree, cfg.sh_degree, model.xyz.device)
-    p["features_rest"] = params["features_rest"] * band[1:][None]
-    exposure_mat = exposure[min(cam_idx, exposure.shape[0] - 1)]
+    with span("host/params"):
+        exposure = model.exposure.detach().requires_grad_(True)
+        params = model.params()
+        p = dict(params)
+        band = sh_band_mask(active_degree, cfg.sh_degree, model.xyz.device)
+        p["features_rest"] = params["features_rest"] * band[1:][None]
+        exposure_mat = exposure[min(cam_idx, exposure.shape[0] - 1)]
+        cam = bank.camera(cam_idx)
     loss, metrics, new_running, res = view_losses(
-        p, exposure_mat, bank.camera(cam_idx), bank.gt[cam_idx],
+        p, exposure_mat, cam, bank.gt[cam_idx],
         bank.alpha_mask[cam_idx], bank.invdepth[cam_idx],
         bank.depth_mask[cam_idx], bank.has_depth[cam_idx], bg_color,
         depth_weight, dwt_running_mean, cfg)
     for t in params.values():
         t.grad = None
-    with record_function("step/backward"):
+    with span("step/backward"):
         (loss if loss_scale == 1.0 else loss * loss_scale).backward()
     grads = {k: (t.grad if t.grad is not None else torch.zeros_like(t))
              for k, t in params.items()}
