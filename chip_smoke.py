@@ -7,8 +7,9 @@ card.
 Phases, one line each or more, any failure exits non-zero:
   1 device     the card's name and power limit (nvidia-smi)
   2 build      nvcc-compiles csrc/raster_fwd.cu, csrc/raster_bwd.cu,
-               csrc/probes.cu and csrc/knn.cu for sm_90a, all at once, into
-               build/kernels/; ptxas registers and spills
+               csrc/probes.cu, csrc/knn.cu and csrc/projection.cu for
+               sm_90a, all at once, into build/kernels/; ptxas registers and
+               spills
   3 kernel     the forward kernel against its plain PyTorch version at 64x48
                on the rasterizer test scenes, both instantiations (n_contrib
                and log T_final too), both tile shapes, with three colour
@@ -28,6 +29,11 @@ Phases, one line each or more, any failure exits non-zero:
                culled (none of them contributing); and the forward's:
                walked, with a lane that blends or stops, culled (none of
                them with such a lane)
+  projection   both projection kernels against the plain composition, its
+               autograd and `project_backward_torch` at garden's (3M,
+               1297x840), bicycle's (6.1M, 1237x822) and the 1080p
+               frame's sizes: ceil() ties, bitwise equal shares, float and
+               gradient errors; card ms, the byte bound, the plain ms
   5 train      the `bench.py:126-155` configuration (800x800, 100k Gaussians
                from create_from_pcd, SH 3, lgdwt losses, patch 128) through
                `train_step`: 3 warm-up and 20 timed steps on a fixed view
@@ -229,9 +235,17 @@ KERNELS = {   # name → (source, the TPU kernel or JAX reduction it replaces)
     "probe_tile_alpha": (f"{CSRC}/probes.cu", "scripts/tpu_dbg.py:54"),
     "probe_tile_blend": (f"{CSRC}/probes.cu", "scripts/tpu_dbg.py:141"),
     "knn3": (f"{CSRC}/knn.cu", "sparse_view_3dgs_pack_tpu/ops/knn.py:106"),
+    # no TPU kernel: XLA fused the JAX projection into the jitted step
+    "project_fwd": (f"{CSRC}/projection.cu",
+                    "none (sparse_view_3dgs_pack_tpu/ops/projection.py, "
+                    "fused by XLA)"),
+    "project_bwd": (f"{CSRC}/projection.cu",
+                    "none (jax.grad of sparse_view_3dgs_pack_tpu/ops/"
+                    "projection.py, fused by XLA)"),
 }
 TRAIN_KERNELS = ("raster_fwd", "raster_bwd", "segment_sum")
-FSGS_KERNELS = TRAIN_KERNELS + ("knn3",)
+# every training path projects through both kernels (ProjectFunction)
+FSGS_KERNELS = TRAIN_KERNELS + ("knn3", "project_fwd", "project_bwd")
 DNG_KERNELS = FSGS_KERNELS    # knn3: create_from_pcd's scale init
 NIR_KERNELS = FSGS_KERNELS    # likewise
 PROBE_KERNELS = tuple(k for k in KERNELS if k.startswith("probe_"))
@@ -413,8 +427,11 @@ def max_errs(out, ref) -> dict:
 
 
 def _counters():
-    from sparse_view_3dgs_pack_tpu_torch.ops import knn, probes, raster
+    from sparse_view_3dgs_pack_tpu_torch.ops import (knn, probes, projection,
+                                                     raster)
     return {"knn3": knn.knn3,
+            "project_fwd": projection.project_forward,
+            "project_bwd": projection.project_backward,
             "raster_fwd": raster.rasterize_forward,
             "raster_bwd": raster.rasterize_backward,
             "segment_sum": raster.pairs_to_gaussians,
@@ -480,7 +497,7 @@ def phase_build() -> None:
     registers and spill bytes of each kernel."""
     from sparse_view_3dgs_pack_tpu_torch.ops import _build
     t0 = time.perf_counter()
-    names = ("raster_fwd", "raster_bwd", "probes", "knn")
+    names = ("raster_fwd", "raster_bwd", "probes", "knn", "projection")
     with ThreadPoolExecutor(len(names)) as pool:
         built = dict(zip(names, pool.map(_build.build, names)))
     secs = time.perf_counter() - t0
@@ -596,6 +613,141 @@ def phase_kernels(device) -> float:
                                          f"{SMALL_TOL}")
                 worst = max(worst, *errs.values())
     return worst
+
+
+# the projection phase: garden's and bicycle's training views and the
+# 1080p viewer frame of garden's model (gsbench/configs), SH 3, C = 3
+PROJECTION_SIZES = (("garden", 3_000_000, 1297, 840),
+                    ("bicycle", 6_100_000, 1237, 822),
+                    ("frame1080", 3_000_000, 1920, 1080))
+PROJECTION_REPS = 20
+
+
+def projection_bytes(P: int, C: int, K: int):
+    """(forward, backward) bytes the projection needs: the forward reads
+    xyz, log scales, logit, quaternion and K·C SH values and writes
+    means2d, depth, conic, colour, opacity, radius and rect; the backward
+    reads the inputs again and the 7 + C cotangents and writes a gradient
+    per input value."""
+    ins = 11 + K * C
+    return 4 * P * (ins + 10 + C), 4 * P * (ins + 7 + C + ins)
+
+
+# f32 operations per Gaussian at SH 3 (`gsbench/work/step.py`): the forward
+# ~470, the backward about twice its differentiable part
+PROJECTION_FWD_OPS, PROJECTION_BWD_OPS = 470, 930
+
+
+def _projection_case(n, W, H, seed=0):
+    from sparse_view_3dgs_pack_tpu_torch import testing
+    return testing.projection_case(seed, n, W, H, 3, 3, "plain",
+                                   device="cuda")
+
+
+def phase_projection(device) -> dict:
+    """`project_fwd_kernel` and `project_bwd_kernel` against their plain
+    versions (`project_raw_torch`, `project_backward_torch`) and autograd
+    of the plain composition, at each of PROJECTION_SIZES: ceil() ties
+    counted, floats within 1e-5 of each value, gradients within 1e-4 of
+    each field's largest; then card ms (CUDA events, mean of
+    PROJECTION_REPS), the bound by bytes, the plain versions' ms and
+    autograd's forward and backward, which the main path ran before.
+    Returns path → kernel → entry."""
+    from sparse_view_3dgs_pack_tpu_torch.ops import projection as pj
+    entries = {}
+    for name, n, W, H in PROJECTION_SIZES:
+        inp, cot = _projection_case(n, W, H)
+        out = pj.project_forward(inp)
+        with torch.no_grad():
+            ref = pj.project_raw_torch(inp)
+        torch.cuda.synchronize()
+        tie = ((out.radii != ref.radii)
+               | (out.rect_radii != ref.rect_radii).any(1)
+               | (torch.isinf(out.depths) != torch.isinf(ref.depths)))
+        n_tie, keep = int(tie.sum()), ~tie
+        step = max(int((out.radii - ref.radii).abs().max()),
+                   int((out.rect_radii - ref.rect_radii).abs().max()))
+        same = {f: float((getattr(out, f) == getattr(ref, f)).float()
+                         .mean()) for f in pj.Projected._fields}
+        worst = {}
+        for f in ("means2d", "depths", "conics", "colors", "opacities"):
+            a, b = getattr(out, f)[keep], getattr(ref, f)[keep]
+            fin = torch.isfinite(b)
+            if not torch.equal(torch.isfinite(a), fin):
+                raise AssertionError(f"projection {name}: {f} finite at "
+                                     "other rows")
+            a, b = a[fin], b[fin]
+            rel = (a - b).abs() / (b.abs() + 0.1 * float(b.abs().max()))
+            worst[f] = float(rel.max())
+        grads = pj.project_backward(inp, cot)
+        plain = pj.project_backward_torch(inp, cot)
+        leaves = inp._replace(**{f: getattr(inp, f).detach().clone()
+                                 .requires_grad_(True) for f in
+                                 ("xyz", "scaling", "opacity", "rotation",
+                                  "features_dc", "features_rest")})
+        o = pj.project_raw_torch(leaves)
+        outs = (o.means2d, o.depths, o.conics, o.colors, o.opacities)
+        torch.autograd.backward(outs, cot)
+        torch.cuda.synchronize()
+        gworst = {}
+        for f in ("xyz", "scaling", "opacity", "rotation", "features_dc",
+                  "features_rest"):
+            g = getattr(grads, f)[keep]
+            for label, w in (("plain", getattr(plain, f)[keep]),
+                             ("autograd", getattr(leaves, f).grad[keep])):
+                gworst[f"{f}/{label}"] = float(
+                    (g - w).abs().max() / w.abs().max().clamp(min=1e-30))
+        log("projection", f"{name} P={n} {W}x{H}: ties {n_tie} (at most "
+                          f"{step} px); bitwise equal shares "
+                          + " ".join(f"{k}={v:.6f}" for k, v in same.items())
+                          + "; forward rel " + " ".join(
+                              f"{k}={v:.3g}" for k, v in worst.items())
+                          + "; backward rel " + " ".join(
+                              f"{k}={v:.3g}" for k, v in gworst.items()))
+        if n_tie > 1e-5 * n or step > 1:
+            raise AssertionError(f"projection {name}: {n_tie} ties, step "
+                                 f"{step}")
+        bad = {k: v for k, v in {**worst, **gworst}.items()
+               if not v <= (1e-5 if k in worst else 1e-4)}
+        if bad:
+            raise AssertionError(f"projection {name}: {bad}")
+        del o, outs, leaves, plain, ref
+
+        fwd_ms = cuda_ms(lambda: pj.project_forward(inp), PROJECTION_REPS)
+        bwd_ms = cuda_ms(lambda: pj.project_backward(inp, cot),
+                         PROJECTION_REPS)
+        with torch.no_grad():
+            plain_fwd = cuda_ms(lambda: pj.project_raw_torch(inp), 3)
+        plain_bwd = cuda_ms(lambda: pj.project_backward_torch(inp, cot), 3)
+
+        def autograd_bwd():
+            lv = inp._replace(**{f: getattr(inp, f).detach()
+                                 .requires_grad_(True) for f in
+                                 ("xyz", "scaling", "opacity", "rotation",
+                                  "features_dc", "features_rest")})
+            p = pj.project_raw_torch(lv)
+            torch.autograd.backward((p.means2d, p.depths, p.conics,
+                                     p.colors, p.opacities), cot)
+        both_ms = cuda_ms(autograd_bwd, 3)
+        fb, bb = projection_bytes(n, 3, 16)
+        fwd_bound, fwd_by = bound(fb, n * PROJECTION_FWD_OPS)
+        bwd_bound, bwd_by = bound(bb, n * PROJECTION_BWD_OPS)
+        log("projection", f"{name}: forward {fwd_ms:.4f} ms (bound "
+                          f"{fwd_bound:.4f}, {fwd_by}; plain {plain_fwd:.3f})"
+                          f", backward {bwd_ms:.4f} ms (bound "
+                          f"{bwd_bound:.4f}, {bwd_by}; plain "
+                          f"{plain_bwd:.3f}; autograd forward + backward "
+                          f"of the plain composition {both_ms:.3f})")
+        entries[f"projection_{name}"] = {
+            "project_fwd": {"card_ms": fwd_ms, "bound_ms": fwd_bound,
+                            "bound_by": fwd_by, "plain_ms": plain_fwd,
+                            "ties": n_tie},
+            "project_bwd": {"card_ms": bwd_ms, "bound_ms": bwd_bound,
+                            "bound_by": bwd_by, "plain_ms": plain_bwd,
+                            "autograd_fwd_bwd_ms": both_ms}}
+        del inp, cot, out, grads
+        torch.cuda.empty_cache()
+    return entries
 
 
 def _one_channel(proj):
@@ -2663,8 +2815,8 @@ def phase_render(device, work: str):
     from sparse_view_3dgs_pack_tpu_torch.ops.binning import bin_gaussians
     from sparse_view_3dgs_pack_tpu_torch.ops.raster import (
         fwd_pixels, rasterize_forward, rasterize_forward_torch)
-    from sparse_view_3dgs_pack_tpu_torch.renderer import (INFER_TILE_X,
-                                                          INFER_TILE_Y, render)
+    from sparse_view_3dgs_pack_tpu_torch.renderer import (
+        INFER_TILE_X, INFER_TILE_Y, project_params, render)
     W, H = RENDER_W, RENDER_H
     cloud = testing.make_sh3_cloud(0, N_GAUSSIANS)
     ply = os.path.join(work, "point_cloud.ply")
@@ -2731,7 +2883,10 @@ def phase_render(device, work: str):
                   + " ".join(f"{k}={v:.3g}" for k, v in errs.items()))
     if not (errs["color"] <= FULL_TOL and errs["alpha"] <= FULL_TOL):
         raise AssertionError(f"frame 0: kernel vs plain {errs} > {FULL_TOL}")
-    t_proj = cuda_ms(lambda: _project_model(model, cams[0]), 10)
+    with torch.no_grad():
+        t_proj = cuda_ms(lambda: project_params(
+            model.params(), cams[0].params(), W, H, 3), 10)
+    t_proj_plain = cuda_ms(lambda: _project_model(model, cams[0]), 3)
     t_bin = cuda_ms(lambda: bin_gaussians(
         proj.means2d, proj.depths, proj.rect_radii, W, H, INFER_TILE_X,
         INFER_TILE_Y), 10)
@@ -2752,7 +2907,8 @@ def phase_render(device, work: str):
     if work.fwd_culled_live:
         raise AssertionError(f"the cull box drops {work.fwd_culled_live} "
                              f"(warp, pair) with a live lane at 1080p")
-    log("render", f"frame0 stages: projection {t_proj:.3f} ms, binning "
+    log("render", f"frame0 stages: projection {t_proj:.3f} ms (plain "
+                  f"{t_proj_plain:.3f}), binning "
                   f"{t_bin:.3f} ms (one host sync for the pair count), "
                   f"raster kernel {t_kernel:.3f} ms (bound {fb[0]:.4f} ms by "
                   f"{fb[1]}; {fb_skips[0]:.4f} with the skipped "
@@ -3804,10 +3960,10 @@ def main() -> None:
     worst = phase_bwd_small(device)
     log("bwd", f"all small scenes within {SMALL_TOL} of the largest "
                f"gradient (worst {worst:.3g})")
+    paths = dict(phase_projection(device))
     work = os.path.join(REPO, "build", "chip_smoke")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
-    paths = {}
     paths["train"], trained = phase_train(device)
     phase_resume(trained, work, device)
     del trained
@@ -3835,7 +3991,8 @@ def main() -> None:
     log("done", f"all phases in {time.perf_counter() - t_start:.1f} s")
     print(card)
     # one entry per (kernel, path): launches, times and bound at that
-    # path's own shape (train and dp 800x800 16x16 tiles, full_schedule a
+    # path's own shape (projection_<size> the projection kernels at
+    # PROJECTION_SIZES, train and dp 800x800 16x16 tiles, full_schedule a
     # training render of its trained model at 800x800 16x16 and knn3 on
     # its 5000 start points, full_schedule_render the inference forward
     # (scene, evals, render CLI) on that model's frame at 32x16, render 1080p

@@ -2,12 +2,13 @@
 
 Counterpart of `sparse_view_3dgs_pack_tpu/renderer.py:27-272`. Inference
 (render, eval, scoring) and training renders share `render_core`; a model
-on a CUDA device goes through the hand-written kernels (`csrc/raster_fwd.cu`,
-and `csrc/raster_bwd.cu` for the training render's backward), a model on
-the CPU through their plain PyTorch versions. The stages run under the
-spans "render/<stage>" (`utils/tracing.py`), which a profile reads
-(`chip_smoke.py`); a training render's projection backward under
-"grad/projection"; an inference frame's host work under "host/frame".
+on a CUDA device goes through the hand-written kernels (`csrc/projection.cu`
+forward and backward, `csrc/raster_fwd.cu`, and `csrc/raster_bwd.cu` for
+the training render's backward), a model on the CPU through their plain
+PyTorch versions. The stages run under the spans "render/<stage>"
+(`utils/tracing.py`), which a profile reads (`chip_smoke.py`); a training
+render's projection backward under "grad/projection"; an inference
+frame's host work under "host/frame".
 """
 
 from __future__ import annotations
@@ -19,7 +20,8 @@ import torch
 from .models.gaussians import GaussianModel
 from .models.neural_field import NeuralField, gaussian_outputs
 from .ops.binning import bin_gaussians
-from .ops.projection import Projected, project_gaussians
+from .ops.projection import (Projected, ProjectionCamera, ProjectionInputs,
+                             project_raw)
 from .ops.raster import make_rasterizer
 from .utils.tracing import grad_span, span
 
@@ -62,7 +64,9 @@ def project_params(params: dict, cam, width: int, height: int,
     """The projection stage of `render_core` (its arguments of the same
     names), under the "render/projection" span; its backward, from the
     gradients of the outputs to those of the parameters it reads, under
-    "grad/projection"."""
+    "grad/projection". A model on a CUDA device goes through
+    `ProjectFunction` (`csrc/projection.cu`), one on the CPU through the
+    plain composition (`ops/projection.py::project_raw`)."""
     xyz = params["xyz"]
     with span("render/projection"):
         viewmat, full_proj, cam_center = _camera_tensors(cam, xyz.device)
@@ -72,30 +76,15 @@ def project_params(params: dict, cam, width: int, height: int,
             xyz, params["scaling"], params["opacity"], params["rotation"],
             params["features_dc"], params["features_rest"], override_color,
             opacity_override)
-        scales = torch.exp(log_scales)
-        opacity = (torch.sigmoid(logit_opacity[:, 0])
-                   if opacity_override is None else opacity_override)
-
-        if confidence is not None:
-            def scale_grad(p):
-                c = confidence.reshape((-1,) + (1,) * (p.ndim - 1))
-                return p * c + (p * (1.0 - c)).detach()
-            xyz, scales, quats, opacity = (scale_grad(p) for p in
-                                           (xyz, scales, quats, opacity))
-
-        sh = None
-        if override_color is None:
-            sh = torch.cat([f_dc, f_rest], 1)
-            if confidence is not None:
-                sh = scale_grad(sh)
-
-        proj = project_gaussians(
-            means3d=xyz, scales=scales, quats=quats,
-            opacities=opacity, viewmat=viewmat, full_proj=full_proj,
-            cam_center=cam_center, tan_fovx=cam.tan_fovx,
-            tan_fovy=cam.tan_fovy, width=width, height=height, sh=sh,
-            sh_degree=sh_degree_active, colors_precomp=override_color,
-            scale_modifier=scaling_modifier, antialiasing=antialiasing)
+        proj = project_raw(ProjectionInputs(
+            xyz=xyz, scaling=log_scales, opacity=logit_opacity,
+            rotation=quats, features_dc=f_dc, features_rest=f_rest,
+            cam=ProjectionCamera(viewmat, full_proj, cam_center,
+                                 float(cam.tan_fovx), float(cam.tan_fovy),
+                                 width, height),
+            sh_degree=sh_degree_active, scale_modifier=scaling_modifier,
+            antialiasing=antialiasing, colors_precomp=override_color,
+            confidence=confidence, opacity_override=opacity_override))
         means2d, depths, conics, colors, opacities = g.outputs(
             proj.means2d, proj.depths, proj.conics, proj.colors,
             proj.opacities)

@@ -485,3 +485,77 @@ def write_llff_colmap_scene(root: str, seed: int = 3, size: int = 400,
     store_point_cloud(os.path.join(root, "3_views/dense/fused.ply"), dense,
                       cols)
     return root
+
+
+PROJECTION_MODES = ("plain", "antialias", "precomp", "override",
+                    "confidence")
+
+
+def projection_case(seed: int, n: int, width: int = 64, height: int = 48,
+                    channels: int = 3, sh_degree: int = 3,
+                    mode: str = "plain", device="cpu"):
+    """(ProjectionInputs, cotangents) of one view of `n` raw Gaussians with
+    every case the projection's gradient masks tell apart: a tenth behind
+    the near plane, a tenth beside the view beyond the Jacobian's
+    1.3·tan_fov clamp, a tenth just off the image with small scales
+    (rect-culled), a tenth whose SH colour is clamped at 0, quaternions
+    of any length. `mode`: "plain"; "antialias" (with scale_modifier
+    0.7); "precomp" (colours given); "override" (activated opacities
+    given); "confidence" (FSGS's gradient scale). The cotangents are
+    seeded normals of the five differentiable outputs."""
+    from .ops.projection import ProjectionCamera, ProjectionInputs
+    import torch
+    rng = np.random.default_rng(seed)
+    cam = make_orbit_cameras(1, radius=4.0, width=width,
+                             height_px=height)[0]
+    p = cam.params()
+    tan_x, tan_y = float(p.tan_fovx), float(p.tan_fovy)
+    xyz = rng.uniform(-1.0, 1.0, (n, 3)).astype(np.float32)
+    k = n // 10
+    # camera-frame points mapped to the world by the inverse view matrix
+    to_world = np.linalg.inv(p.viewmat.astype(np.float64))
+
+    def world(xc, yc, zc):
+        pts = np.stack([xc, yc, zc, np.ones_like(zc)], 1) @ to_world.T
+        return pts[:, :3].astype(np.float32)
+
+    zc = rng.uniform(1.0, 5.0, k)
+    side = rng.choice([-1.0, 1.0], k)
+    xyz[:k] = cam.camera_center * 1.6 + 0.2 * xyz[:k]           # behind
+    xyz[k:2 * k] = world(side * zc * tan_x * rng.uniform(1.4, 3.0, k),
+                         rng.uniform(-0.5, 0.5, k) * zc * tan_y, zc)
+    xyz[2 * k:3 * k] = world(rng.uniform(-0.5, 0.5, k) * zc * tan_x,
+                             side * zc * tan_y * rng.uniform(1.06, 1.2, k),
+                             zc)
+    scales = np.log(rng.uniform(0.01, 0.15, (n, 3)))
+    scales[2 * k:3 * k] = np.log(rng.uniform(0.001, 0.003, (k, 3)))
+    quats = rng.normal(size=(n, 4)) * rng.uniform(0.3, 2.0, (n, 1))
+    opacity = rng.uniform(-3.0, 4.0, (n, 1))
+    n_sh = (sh_degree + 1) ** 2
+    features = rng.normal(0.0, 0.3, (n, 16, channels))
+    features[:, 0] = rng.uniform(-1.5, 1.5, (n, channels))
+    features[3 * k:4 * k, 0] = -3.0                      # colour clamped at 0
+    features[:, n_sh:] = 0.0
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)
+    inp = ProjectionInputs(
+        xyz=t(xyz), scaling=t(scales), opacity=t(opacity),
+        rotation=t(quats), features_dc=t(features[:, :1]),
+        features_rest=t(features[:, 1:]),
+        cam=ProjectionCamera(t(p.viewmat), t(p.full_proj),
+                             t(p.cam_center), tan_x, tan_y, width, height),
+        sh_degree=sh_degree)
+    if mode == "antialias":
+        inp = inp._replace(antialiasing=True, scale_modifier=0.7)
+    elif mode == "precomp":
+        inp = inp._replace(colors_precomp=t(rng.uniform(-0.2, 1.2,
+                                                       (n, channels))))
+    elif mode == "override":
+        inp = inp._replace(opacity_override=t(rng.uniform(0.0, 1.0, n)))
+    elif mode == "confidence":
+        inp = inp._replace(confidence=t(rng.uniform(0.1, 1.0, n)))
+    elif mode != "plain":
+        raise ValueError(f"unknown projection mode {mode!r}")
+    cot = (t(rng.normal(size=(n, 2))), t(rng.normal(size=n)),
+           t(rng.normal(size=(n, 3))), t(rng.normal(size=(n, channels))),
+           t(rng.normal(size=n)))
+    return inp, cot

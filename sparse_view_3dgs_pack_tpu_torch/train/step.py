@@ -161,15 +161,19 @@ def photometric_losses(image, gt, dwt_running_mean: torch.Tensor,
 
 def view_losses(p: dict, exposure_mat, cam, gt, alpha_mask, mono_invdepth,
                 depth_mask, has_depth, bg_color, depth_weight: float,
-                dwt_running_mean: torch.Tensor, cfg: StepConfig):
+                dwt_running_mean: torch.Tensor, cfg: StepConfig,
+                active_degree: int):
     """The full per-view training loss (`step.py:140-194`): the
-    photometric losses plus depth-L1. `p` already carries the SH band
-    mask. Returns (loss, metrics, new_running, render result). The
+    photometric losses plus depth-L1. The SH colour is evaluated to
+    `active_degree`, which is what the JAX step's band mask gives: the
+    masked coefficients add exactly 0 to the colour and take exactly 0
+    gradient. Returns (loss, metrics, new_running, render result). The
     backward from the loss to the render's image and depth runs under
     "grad/losses"."""
     res = render_core(
         p, exposure_mat, cam, cfg.width, cfg.height, bg_color,
-        sh_degree_active=cfg.sh_degree, antialiasing=cfg.antialiasing,
+        sh_degree_active=min(active_degree, cfg.sh_degree),
+        antialiasing=cfg.antialiasing,
         use_trained_exp=cfg.train_test_exp, inference=False)
     with span("step/losses"):
         g = grad_span("grad/losses")
@@ -206,16 +210,13 @@ def loss_and_grads(model: GaussianModel, bank: CameraBank, cam_idx: int,
     with span("host/params"):
         exposure = model.exposure.detach().requires_grad_(True)
         params = model.params()
-        p = dict(params)
-        band = sh_band_mask(active_degree, cfg.sh_degree, model.xyz.device)
-        p["features_rest"] = params["features_rest"] * band[1:][None]
         exposure_mat = exposure[min(cam_idx, exposure.shape[0] - 1)]
         cam = bank.camera(cam_idx)
     loss, metrics, new_running, res = view_losses(
-        p, exposure_mat, cam, bank.gt[cam_idx],
+        params, exposure_mat, cam, bank.gt[cam_idx],
         bank.alpha_mask[cam_idx], bank.invdepth[cam_idx],
         bank.depth_mask[cam_idx], bank.has_depth[cam_idx], bg_color,
-        depth_weight, dwt_running_mean, cfg)
+        depth_weight, dwt_running_mean, cfg, active_degree)
     for t in params.values():
         t.grad = None
     with span("step/backward"):

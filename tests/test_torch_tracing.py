@@ -156,7 +156,7 @@ def _view_loss(tr: Trainer) -> torch.Tensor:
     loss, _, _, _ = step.view_losses(
         p, tr.model.exposure[0], b.camera(0), b.gt[0], b.alpha_mask[0],
         b.invdepth[0], b.depth_mask[0], b.has_depth[0], tr.background, 0.0,
-        tr.dwt_running_mean, tr.cfg)
+        tr.dwt_running_mean, tr.cfg, tr.cfg.sh_degree)
     return loss
 
 
