@@ -12,6 +12,9 @@ The parameters are laid out as the JAX package lays them out (a layer's
 keys (`p['encoder']`, `p['sigma_net'][0]['w']`, …, `__cfg__`,
 `__bound__`), so an npz written by either package loads in the other. The
 MLP products run in float32 (TF32 off), outside any kernel, as in JAX.
+`gaussian_outputs`, the field's one evaluation in training, runs under the
+span "step/field" and its backward under "grad/field"
+(`utils/tracing.py`).
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from torch import nn
 from ..device import resolve_device
 from ..ops.hashgrid import HashGridConfig, hashgrid_encode, init_hashgrid
 from ..ops.shencode import sh_encode
+from ..utils.tracing import grad_span, span
 
 torch.backends.cuda.matmul.allow_tf32 = False
 
@@ -65,10 +69,12 @@ def _init_mlp(generator: torch.Generator, dims) -> nn.ModuleList:
     return nn.ModuleList(layers)
 
 
-def _mlp(layers: nn.ModuleList, x: torch.Tensor) -> torch.Tensor:
-    for i, layer in enumerate(layers):
-        x = x @ layer.w + layer.b
-        if i < len(layers) - 1:
+def _mlp(w: dict, name: str, n_layers: int, x: torch.Tensor) -> torch.Tensor:
+    """The MLP `name` of `n_layers` layers, its weights read from `w`
+    (parameter name → tensor)."""
+    for i in range(n_layers):
+        x = x @ w[f"{name}.{i}.w"] + w[f"{name}.{i}.b"]
+        if i < n_layers - 1:
             x = torch.relu(x)
     return x
 
@@ -102,22 +108,30 @@ class NeuralField(nn.Module):
         """name → parameter (`encoder`, `sigma_net.0.w`, …)."""
         return dict(self.named_parameters())
 
-    def neural_density(self, x: torch.Tensor):
+    # `w`, where given, stands for `params()`: the same tensors, or views
+    # of them that carry a span of the backward (`gaussian_outputs`)
+    def neural_density(self, x: torch.Tensor, w: dict | None = None):
         """x: (N, 3) → (sigma (N,), geo_feat (N, geo_feat_dim))."""
-        enc = hashgrid_encode(self.encoder, x - self.coord_center,
+        w = self.params() if w is None else w
+        enc = hashgrid_encode(w["encoder"], x - w["coord_center"],
                               self.cfg.grid, self.cfg.bound)
-        h = _mlp(self.sigma_net, enc)
+        h = _mlp(w, "sigma_net", len(self.sigma_net), enc)
         return h[:, 0], h[:, 1:]
 
-    def neural_color(self, geo_feat: torch.Tensor, dirs: torch.Tensor):
+    def neural_color(self, geo_feat: torch.Tensor, dirs: torch.Tensor,
+                     w: dict | None = None):
+        w = self.params() if w is None else w
         enc_d = sh_encode(dirs, self.cfg.sh_degree)
-        h = _mlp(self.color_net, torch.cat([enc_d, geo_feat], -1))
+        h = _mlp(w, "color_net", len(self.color_net),
+                 torch.cat([enc_d, geo_feat], -1))
         return torch.sigmoid(h) * (1 + 2 * COLOR_EPS) - COLOR_EPS
 
-    def neural_forward(self, x: torch.Tensor, dirs: torch.Tensor):
+    def neural_forward(self, x: torch.Tensor, dirs: torch.Tensor,
+                       w: dict | None = None):
         """(sigma (N,), colour (N, 3)), `GridRenderer.forward`."""
-        sigma, geo = self.neural_density(x)
-        return sigma, self.neural_color(geo, dirs)
+        w = self.params() if w is None else w
+        sigma, geo = self.neural_density(x, w)
+        return sigma, self.neural_color(geo, dirs, w)
 
 
 def gaussian_outputs(field: NeuralField, xyz: torch.Tensor,
@@ -125,13 +139,25 @@ def gaussian_outputs(field: NeuralField, xyz: torch.Tensor,
     """(colour (N, 3), opacity (N,)) of N Gaussians seen from `cam_center`:
     the field at each mean along the unit view direction, the opacity
     sigmoid(sigma) · sigmoid(the point's own opacity (N, 1)) (JAX
-    `dng_loop._neural_outputs`, `renderer.py:260-267`)."""
-    dirs = xyz - cam_center[None, :]
-    dirs = dirs / torch.clamp(torch.linalg.vector_norm(dirs, dim=-1,
-                                                       keepdim=True),
-                              min=1e-12)
-    sigma, color = field.neural_forward(xyz, dirs)
-    return color, torch.sigmoid(sigma) * torch.sigmoid(opacity[:, 0])
+    `dng_loop._neural_outputs`, `renderer.py:260-267`). Runs under the
+    span "step/field"; its backward, from the gradients of the colour and
+    opacity to those of the field's parameters and the opacities, under
+    "grad/field"."""
+    with span("step/field"):
+        # the means are not wrapped: their gradient sums the projection's
+        # and both evaluations' in the photometric pass, in an order a
+        # wrapper would change
+        g = grad_span("grad/field")
+        w = field.params()
+        *ws, opacity = g.inputs(*w.values(), opacity)
+        w = dict(zip(w, ws))
+        dirs = xyz - cam_center[None, :]
+        dirs = dirs / torch.clamp(torch.linalg.vector_norm(dirs, dim=-1,
+                                                           keepdim=True),
+                                  min=1e-12)
+        sigma, color = field.neural_forward(xyz, dirs, w)
+        return g.outputs(color,
+                         torch.sigmoid(sigma) * torch.sigmoid(opacity[:, 0]))
 
 
 def npz_key(name: str) -> str:

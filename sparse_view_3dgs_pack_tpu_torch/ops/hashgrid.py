@@ -21,6 +21,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils.tracing import span
+
 _PRIMES = (1, 2654435761, 805459861)
 
 
@@ -58,14 +60,17 @@ def init_hashgrid(generator: torch.Generator,
 def _level_constants(cfg: HashGridConfig, device):
     """Per level, as (L, 1) tensors: the resolution (float and int64), the
     dense grid's stride, whether the level is indexed densely, and the
-    level's row offset in the flattened table."""
+    level's row offset in the flattened table. Five copies of host
+    numbers to the device, each of which waits for it (the span
+    "sync/grid_levels")."""
     table_size = 1 << cfg.log2_hashmap_size
     res = cfg.resolutions()
     col = lambda v, dt: torch.tensor(v, dtype=dt, device=device)[:, None]
-    return (col(res, torch.float32), col(res, torch.int64),
-            col([r + 1 for r in res], torch.int64),
-            col([(r + 1) ** 3 <= table_size for r in res], torch.bool),
-            col([l * table_size for l in range(len(res))], torch.int64))
+    with span("sync/grid_levels"):
+        return (col(res, torch.float32), col(res, torch.int64),
+                col([r + 1 for r in res], torch.int64),
+                col([(r + 1) ** 3 <= table_size for r in res], torch.bool),
+                col([l * table_size for l in range(len(res))], torch.int64))
 
 
 def hashgrid_encode(table: torch.Tensor, x: torch.Tensor,

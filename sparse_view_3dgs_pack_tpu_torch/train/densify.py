@@ -20,6 +20,7 @@ import torch
 
 from ..models.gaussians import NIR_ALBEDO, STAT_NAMES, GaussianModel
 from ..utils.general import build_rotation, inverse_sigmoid
+from ..utils.tracing import span
 from . import optim
 
 
@@ -31,8 +32,10 @@ def add_densification_stats(model: GaussianModel,
     """viewspace_grad_pixels: (N, 2) d(loss)/d(means2d in pixels). The norm
     is taken at the (W/2, H/2) scale of the reference CUDA backward's NDC
     gradient, keeping its 0.0002 threshold (`densify.py:42-43`)."""
-    scale = torch.tensor([width * 0.5, height * 0.5], dtype=torch.float32,
-                         device=viewspace_grad_pixels.device)
+    with span("sync/stats_scale"):     # a copy of host numbers
+        scale = torch.tensor([width * 0.5, height * 0.5],
+                             dtype=torch.float32,
+                             device=viewspace_grad_pixels.device)
     g = torch.linalg.vector_norm(viewspace_grad_pixels[:, :2] * scale, dim=-1)
     visible = radii > 0
     model.xyz_gradient_accum += torch.where(visible, g, torch.zeros_like(g))

@@ -23,8 +23,18 @@ detaches it (its moments still move it); the field's own AdamState steps
 in the soft and photometric passes. One patch size per iteration, drawn
 from 5–16, serves the four patch-norm losses (PARITY.md "Known
 deviations"); it and the camera order come from a `random.Random(seed)`.
-The passes run under the spans (`utils/tracing.py`)
-"dng/hard", "dng/soft" and "dng/photo".
+
+`DNGTrainer` holds the model, the field, both Adam states, the schedules,
+the camera bank, the spiral and that `Random`; its `step()` is one
+iteration (the SH schedule, the view and patch draws, `dng_step`, the
+densify event, the near-range prune), and `train_dngaussian` is the CLI's
+loop around it. The passes run under the spans (`utils/tracing.py`)
+"dng/hard", "dng/soft" and "dng/photo"; inside them "step/depth_losses"
+(the hard and soft passes' depth losses), "step/losses" (the photometric
+loss and the three penalties), "step/backward", "step/adam" (the
+Gaussians' and the field's Adam) and "step/stats"; the field's
+evaluations under "step/field" and "grad/field"
+(`models/neural_field.py`); all of `DNGTrainer.step` under "host/step".
 """
 
 from __future__ import annotations
@@ -150,10 +160,13 @@ def hard_pass(model, adam, view: _View, patch_idx, lrs, band, bg,
         res = _render(p, view.cam, bg, cfg,
                       torch.ones((n, 3), device=bg.device),
                       torch.full((n,), HARD_OPACITY, device=bg.device))
-        loss = view.has_depth * _depth_losses(
-            res.expected_depth, view.depth_mono, view.gt, patch_idx, cfg)
-        loss.backward()
-        adam_update(model.params(), grads_or_zeros(params), adam, lrs)
+        with span("step/depth_losses"):
+            loss = view.has_depth * _depth_losses(
+                res.expected_depth, view.depth_mono, view.gt, patch_idx, cfg)
+        with span("step/backward"):
+            loss.backward()
+        with span("step/adam"):
+            adam_update(model.params(), grads_or_zeros(params), adam, lrs)
     return loss.detach()
 
 
@@ -172,12 +185,50 @@ def soft_pass(model, field, adam, field_adam, view: _View, patch_idx, lrs,
             color, opacity = gaussian_outputs(field, p["xyz"], p["opacity"],
                                               view.cam.cam_center)
         res = _render(p, view.cam, bg, cfg, color, opacity)
-        loss = view.has_depth * _depth_losses(
-            res.expected_depth, view.depth_mono, view.gt, patch_idx, cfg)
-        loss.backward()
-        adam_update(model.params(), grads_or_zeros(params), adam, lrs)
-        adam_update(fparams, grads_or_zeros(fparams), field_adam, field_lrs)
+        with span("step/depth_losses"):
+            loss = view.has_depth * _depth_losses(
+                res.expected_depth, view.depth_mono, view.gt, patch_idx, cfg)
+        with span("step/backward"):
+            loss.backward()
+        with span("step/adam"):
+            adam_update(model.params(), grads_or_zeros(params), adam, lrs)
+            adam_update(fparams, grads_or_zeros(fparams), field_adam,
+                        field_lrs)
     return loss.detach()
+
+
+def _photo_loss(image, view: _View, params: dict, field: NeuralField,
+                cfg: DNGConfig) -> tuple:
+    """(the photometric pass's loss, its L1): L1 + SSIM (masked for DTU)
+    and the shape, scale and opacity penalties, the last from a second
+    evaluation of the field at the unmasked parameters."""
+    gt = view.gt
+    if cfg.use_mask:
+        image, gt = image * view.alpha_mask, gt * view.alpha_mask
+    ll1 = l1_loss(image, gt)
+    loss = ll1 + cfg.lambda_dssim * (1.0 - ssim(image, gt))
+
+    n = float(params["xyz"].shape[0])
+    scaling = torch.exp(params["scaling"])
+    smax = scaling.max(dim=-1).values
+    smin = scaling.min(dim=-1).values
+    shape_pena = torch.sum(smax / torch.clamp(smin, min=1e-12)) / n
+    scale_pena = torch.sum(smax ** 2) / n
+    if cfg.use_neural:
+        _, opac = gaussian_outputs(field, params["xyz"], params["opacity"],
+                                   view.cam.cam_center)
+    else:
+        opac = torch.sigmoid(params["opacity"][:, 0])
+    hi = (opac > 0.2).to(torch.float32)
+    lo = (opac < 0.2).to(torch.float32)
+    opa_pena = (1.0 - torch.sum(opac ** 2 * hi)
+                / torch.clamp(hi.sum(), min=1.0)
+                + torch.sum((1 - opac) ** 2 * lo)
+                / torch.clamp(lo.sum(), min=1.0))
+    loss = loss + (cfg.shape_pena * shape_pena
+                   + cfg.scale_pena * scale_pena
+                   + cfg.opa_pena * opa_pena)
+    return loss, ll1
 
 
 def photo_pass(model, field, adam, field_adam, view: _View, lrs, field_lrs,
@@ -197,40 +248,19 @@ def photo_pass(model, field, adam, field_adam, view: _View, lrs, field_lrs,
             color, opacity = gaussian_outputs(field, p["xyz"], p["opacity"],
                                               view.cam.cam_center)
         res = _render(p, view.cam, bg, cfg, color, opacity)
-        image, gt = res.render, view.gt
-        if cfg.use_mask:
-            image, gt = image * view.alpha_mask, gt * view.alpha_mask
-        ll1 = l1_loss(image, gt)
-        loss = ll1 + cfg.lambda_dssim * (1.0 - ssim(image, gt))
-
-        n = float(model.num_points)
-        scaling = torch.exp(params["scaling"])
-        smax = scaling.max(dim=-1).values
-        smin = scaling.min(dim=-1).values
-        shape_pena = torch.sum(smax / torch.clamp(smin, min=1e-12)) / n
-        scale_pena = torch.sum(smax ** 2) / n
-        if cfg.use_neural:
-            _, opac = gaussian_outputs(field, params["xyz"],
-                                       params["opacity"],
-                                       view.cam.cam_center)
-        else:
-            opac = torch.sigmoid(params["opacity"][:, 0])
-        hi = (opac > 0.2).to(torch.float32)
-        lo = (opac < 0.2).to(torch.float32)
-        opa_pena = (1.0 - torch.sum(opac ** 2 * hi)
-                    / torch.clamp(hi.sum(), min=1.0)
-                    + torch.sum((1 - opac) ** 2 * lo)
-                    / torch.clamp(lo.sum(), min=1.0))
-        loss = loss + (cfg.shape_pena * shape_pena
-                       + cfg.scale_pena * scale_pena
-                       + cfg.opa_pena * opa_pena)
-        loss.backward()
-        adam_update(model.params(), grads_or_zeros(params), adam, lrs)
-        adam_update(fparams, grads_or_zeros(fparams), field_adam, field_lrs)
-        vs = res.viewspace_points
-        add_densification_stats(
-            model, vs.grad if vs.grad is not None else torch.zeros_like(vs),
-            res.radii, cfg.width, cfg.height)
+        with span("step/losses"):
+            loss, ll1 = _photo_loss(res.render, view, params, field, cfg)
+        with span("step/backward"):
+            loss.backward()
+        with span("step/adam"):
+            adam_update(model.params(), grads_or_zeros(params), adam, lrs)
+            adam_update(fparams, grads_or_zeros(fparams), field_adam,
+                        field_lrs)
+        with span("step/stats"):
+            vs = res.viewspace_points
+            add_densification_stats(
+                model, vs.grad if vs.grad is not None
+                else torch.zeros_like(vs), res.radii, cfg.width, cfg.height)
     return {"loss": loss.detach(), "l1": ll1.detach(),
             "n_pairs": res.n_pairs}
 
@@ -250,15 +280,21 @@ def dng_step(model: GaussianModel, field: NeuralField, adam: AdamState,
     """One DNGaussian iteration on view `cam_idx` (JAX `dng_step`): the
     hard pass, the soft pass when `cfg.use_soft`, the photometric pass.
     Updates the model, the field and both Adam states in place; returns
-    the photometric pass's metrics."""
+    the photometric pass's metrics, with the hard pass's loss
+    (`hard_loss`) and the soft pass's where it ran (`soft_loss`)."""
     view = bank_view(bank, cam_idx)
     band = sh_band_mask(active_degree, cfg.sh_degree, bg.device)
-    hard_pass(model, adam, view, patch_idx, lrs, band, bg, cfg)
+    hard = hard_pass(model, adam, view, patch_idx, lrs, band, bg, cfg)
+    soft = None
     if cfg.use_soft:
-        soft_pass(model, field, adam, field_adam, view, patch_idx, lrs,
-                  field_lrs, band, bg, cfg)
-    return photo_pass(model, field, adam, field_adam, view, lrs, field_lrs,
-                      band, bg, cfg)
+        soft = soft_pass(model, field, adam, field_adam, view, patch_idx,
+                         lrs, field_lrs, band, bg, cfg)
+    metrics = photo_pass(model, field, adam, field_adam, view, lrs,
+                         field_lrs, band, bg, cfg)
+    metrics["hard_loss"] = hard
+    if soft is not None:
+        metrics["soft_loss"] = soft
+    return metrics
 
 
 @torch.no_grad()
@@ -303,108 +339,149 @@ def near_range_mask(xyz: torch.Tensor, centers: torch.Tensor,
     return (d < near_range).any(dim=1)
 
 
+class DNGTrainer:
+    """DNGaussian's training state on the model's device, stepped one
+    iteration at a time (as `train/loop.py::Trainer` is for the main
+    path). `scene` has `gaussians`, `getTrainCameras()` and
+    `cameras_extent`; a camera whose `invdepthmap` is set (with
+    `depth_reliable`) carries 255 − its depth prior; `dataset_args` gives
+    `sh_degree` and `white_background`. `seed` seeds the camera order and
+    the patch draws; `near_range` > 0 arms the spiral's near-range prune;
+    `dataset_type` `blender` trains on white."""
+
+    def __init__(self, scene, opt, pipe, dataset_args, seed: int = 0,
+                 near_range: float = 0.0, dataset_type: str = "llff"):
+        self.scene, self.opt, self.pipe = scene, opt, pipe
+        self.near_range, self.dataset_type = near_range, dataset_type
+        self.model = scene.gaussians
+        self.device = self.model.xyz.device
+        cams = scene.getTrainCameras()
+        self.width, self.height = cams[0].width, cams[0].height
+        self.n_views = len(cams)
+        self.sh_degree = dataset_args.sh_degree
+        self.bank = CameraBank.from_cameras(cams, 3, self.device)
+        self.adam = init_adam(self.model.params())
+        self.field = NeuralField(
+            NeuralFieldConfig(bound=max(scene.cameras_extent, 1.0)),
+            torch.Generator(device=self.device).manual_seed(0))
+        self.field_adam = init_adam(self.field.params())
+        self.field_lrs = neural_lrs(self.field)
+        self.lr_scheds = make_lr_schedules(opt, scene.cameras_extent)
+        white = dataset_args.white_background or dataset_type == "blender"
+        self.background = torch.tensor(
+            [1.0, 1.0, 1.0] if white else [0.0, 0.0, 0.0],
+            device=self.device)
+        self.spiral = torch.tensor(
+            np.stack([c.camera_center for c in
+                      generate_spiral_path(cams, SPIRAL_FRAMES)]),
+            device=self.device)
+        self.use_neural = bool(getattr(opt, "use_neural", 1))
+        self.rng = random.Random(seed)
+        self.counts = dict(soft_passes=0, near_prunes=0, near_pruned=0,
+                           peak_gaussians=self.model.num_points)
+        self.iteration = 0
+        self.active_sh_degree = 0
+        self.viewpoint_stack = []
+        # the last step's view, patch index and configuration
+        self.cam_idx = self.patch_idx = None
+        self.cfg = None
+
+    def config(self, it: int) -> DNGConfig:
+        o = self.opt
+        return DNGConfig(
+            width=self.width, height=self.height, sh_degree=self.sh_degree,
+            lambda_dssim=o.lambda_dssim, error_tolerance=o.error_tolerance,
+            shape_pena=o.shape_pena, scale_pena=o.scale_pena,
+            opa_pena=o.opa_pena, use_neural=self.use_neural,
+            use_mask=(self.dataset_type == "dtu"),
+            use_smooth=(it > SMOOTH_FROM_ITER),
+            use_soft=(it > o.soft_depth_start))
+
+    def step(self) -> dict:
+        """One iteration, under the "host/step" span: the SH schedule, the
+        view and patch draws, `dng_step`, the densify event and the
+        near-range prune. Returns the photometric pass's metrics."""
+        with span("host/step"):
+            self.iteration += 1
+            it, o, model = self.iteration, self.opt, self.model
+            if it % 1000 == 0 and self.active_sh_degree < self.sh_degree:
+                self.active_sh_degree += 1
+            if not self.viewpoint_stack:
+                self.viewpoint_stack = list(range(self.n_views))
+            self.cam_idx = self.viewpoint_stack.pop(
+                self.rng.randint(0, len(self.viewpoint_stack) - 1))
+            self.patch_idx = self.rng.randint(0, 11)
+            self.cfg = cfg = self.config(it)
+            lrs = {k: f(it) for k, f in self.lr_scheds.items()}
+            metrics = dng_step(model, self.field, self.adam, self.field_adam,
+                               self.bank, self.cam_idx, self.patch_idx, lrs,
+                               self.field_lrs, self.active_sh_degree,
+                               self.background, cfg)
+            self.counts["soft_passes"] += int(cfg.use_soft)
+
+            if (o.densify_from_iter < it < o.densify_until_iter
+                    and it % o.densification_interval == 0):
+                densify_and_prune(
+                    model, self.adam, o.densify_grad_threshold, MIN_OPACITY,
+                    self.scene.cameras_extent, max_screen_size=0,
+                    percent_dense=o.percent_dense,
+                    generator=torch.Generator(
+                        device=self.device).manual_seed(it))
+                self.counts["peak_gaussians"] = max(
+                    self.counts["peak_gaussians"], model.num_points)
+
+            if (self.near_range > 0 and it > NEAR_PRUNE_FROM_ITER
+                    and (it - 1) % NEAR_PRUNE_EVERY == 0):
+                self.counts["near_pruned"] += prune_only(
+                    model, self.adam, near_range_mask(
+                        model.xyz.detach(), self.spiral, self.near_range))
+                self.counts["near_prunes"] += 1
+            return metrics
+
+
 def train_dngaussian(dataset, opt, pipe, args, device,
                      near_range: float = 0.0,
                      dataset_type: str = "llff") -> dict:
-    """The DNGaussian training loop on `device`. dataset_type: `llff`,
-    `dtu` (black background, masked photometric loss, reference
-    `train_dtu.py`) or `blender` (white background). Returns its counts:
-    soft passes, near-range prunes and the points they removed, the peak
-    Gaussian count."""
+    """The DNGaussian training loop on `device`: a `DNGTrainer` stepped
+    `opt.iterations` times, with the debug check, the evaluations and the
+    saves between steps. dataset_type: `llff`, `dtu` (black background,
+    masked photometric loss, reference `train_dtu.py`) or `blender`
+    (white background). Returns its counts: soft passes, near-range
+    prunes and the points they removed, the peak Gaussian count."""
     scene = Scene(dataset, sh_degree=dataset.sh_degree, device=device)
-    cams = scene.getTrainCameras()
-    W, H = cams[0].width, cams[0].height
-
     estimator = get_depth_estimator(getattr(args, "depth_estimator", "auto"),
                                     dataset.source_path)
-    for c in cams:
+    for c in scene.getTrainCameras():
         d = estimator.depth_for_camera(c)
         if d is not None:
             c.invdepthmap = (255.0 - np.asarray(d)).astype(np.float32)
             c.depth_mask = np.ones_like(c.invdepthmap)
             c.depth_reliable = True
-    bank = CameraBank.from_cameras(cams, 3, device)
-
-    model = scene.gaussians
-    adam = init_adam(model.params())
-    field = NeuralField(
-        NeuralFieldConfig(bound=max(scene.cameras_extent, 1.0)),
-        torch.Generator(device=device).manual_seed(0))
-    field_adam = init_adam(field.params())
-    field_lrs = neural_lrs(field)
-    lr_scheds = make_lr_schedules(opt, scene.cameras_extent)
-
-    white = dataset.white_background or dataset_type == "blender"
-    bg = torch.tensor([1.0, 1.0, 1.0] if white else [0.0, 0.0, 0.0],
-                      device=device)
-    spiral = torch.tensor(np.stack([c.camera_center for c in
-                                    generate_spiral_path(cams,
-                                                         SPIRAL_FRAMES)]),
-                          device=device)
-    use_neural = bool(getattr(opt, "use_neural", 1))
-    rng = random.Random(getattr(args, "seed", 0))
-
-    counts = dict(soft_passes=0, near_prunes=0, near_pruned=0,
-                  peak_gaussians=model.num_points)
-    active_sh = 0
-    viewpoint_stack = []
+    trainer = DNGTrainer(scene, opt, pipe, dataset,
+                         seed=getattr(args, "seed", 0),
+                         near_range=near_range, dataset_type=dataset_type)
     save_iters = set(args.save_iterations)
     test_iters = set(getattr(args, "test_iterations", None) or [])
     t0 = time.time()
     for it in range(1, opt.iterations + 1):
-        if it % 1000 == 0 and active_sh < dataset.sh_degree:
-            active_sh += 1
-        if not viewpoint_stack:
-            viewpoint_stack = list(range(len(cams)))
-        cam_idx = viewpoint_stack.pop(rng.randint(0,
-                                                  len(viewpoint_stack) - 1))
-        patch_idx = rng.randint(0, 11)
-        cfg = DNGConfig(
-            width=W, height=H, sh_degree=dataset.sh_degree,
-            lambda_dssim=opt.lambda_dssim,
-            error_tolerance=opt.error_tolerance, shape_pena=opt.shape_pena,
-            scale_pena=opt.scale_pena, opa_pena=opt.opa_pena,
-            use_neural=use_neural,
-            use_mask=(dataset_type == "dtu"),
-            use_smooth=(it > SMOOTH_FROM_ITER),
-            use_soft=(it > opt.soft_depth_start))
-        lrs = {k: f(it) for k, f in lr_scheds.items()}
-        metrics = dng_step(model, field, adam, field_adam, bank, cam_idx,
-                           patch_idx, lrs, field_lrs, active_sh, bg, cfg)
-        counts["soft_passes"] += int(cfg.use_soft)
-
-        if (opt.densify_from_iter < it < opt.densify_until_iter
-                and it % opt.densification_interval == 0):
-            densify_and_prune(
-                model, adam, opt.densify_grad_threshold, MIN_OPACITY,
-                scene.cameras_extent, max_screen_size=0,
-                percent_dense=opt.percent_dense,
-                generator=torch.Generator(device=device).manual_seed(it))
-            counts["peak_gaussians"] = max(counts["peak_gaussians"],
-                                           model.num_points)
-
-        if (near_range > 0 and it > NEAR_PRUNE_FROM_ITER
-                and (it - 1) % NEAR_PRUNE_EVERY == 0):
-            counts["near_pruned"] += prune_only(
-                model, adam, near_range_mask(model.xyz.detach(), spiral,
-                                             near_range))
-            counts["near_prunes"] += 1
-
+        metrics = trainer.step()
+        model, field = trainer.model, trainer.field
         debug.check_step(pipe, it, metrics, model, dataset.model_path,
-                         {"cam_idx": cam_idx, "active_sh_degree": active_sh})
+                         {"cam_idx": trainer.cam_idx,
+                          "active_sh_degree": trainer.active_sh_degree})
         if it % 100 == 0:
             print(f"[{it}/{opt.iterations}] loss="
                   f"{float(metrics['loss']):.5f}", flush=True)
         if it in test_iters or it == opt.iterations:
-            stats = _dng_evaluate(model, field, scene.getTestCameras(), bg,
-                                  cfg)
+            stats = _dng_evaluate(model, field, scene.getTestCameras(),
+                                  trainer.background, trainer.cfg)
             if stats:
                 print(f"\n[ITER {it}] Evaluating test: {format_eval(stats)} "
                       f"({model.num_points} Gaussians)", flush=True)
         if it in save_iters or it == opt.iterations:
             scene.gaussians = model
             scene.save(it)
-            if use_neural:
+            if trainer.use_neural:
                 # colour and opacity live in the field: the PLY alone does
                 # not reproduce a render (reference `train_llff.py:232-235`)
                 save_neural_npz(os.path.join(
@@ -414,7 +491,8 @@ def train_dngaussian(dataset, opt, pipe, args, device,
     elapsed = time.time() - t0
     print(f"DNGaussian training took {elapsed:.1f}s for {opt.iterations} "
           f"iterations ({opt.iterations / max(elapsed, 1e-9):.2f} it/s)")
+    counts = trainer.counts
     print("DNG counts: " + " ".join(f"{k}={v}" for k, v in counts.items()),
           flush=True)
-    scene.gaussians = model
+    scene.gaussians = trainer.model
     return counts

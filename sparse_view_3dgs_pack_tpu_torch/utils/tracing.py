@@ -5,19 +5,27 @@ range on the host; `grad_span(name)` brackets one layer's share of the
 backward, which the autograd engine runs on its own thread where no host
 range of the caller reaches. Names, by prefix:
 
-  render/ step/ dp/ nir/ dng/   the stages of a render and of a step
+  render/ step/ dp/ nir/ dng/   the stages of a render and of a step;
+                                 DNGaussian's passes dng/hard, dng/soft,
+                                 dng/photo hold step/field (each forward
+                                 evaluation of the neural field),
+                                 step/depth_losses, step/losses,
+                                 step/backward, step/adam and step/stats
   grad/                          a layer's part of the backward: grad/losses,
-                                 grad/raster, grad/projection
+                                 grad/raster, grad/projection, grad/field
   sync/                          a point inside a step or a frame where the
                                  host waits for the card: sync/binning_count,
                                  sync/binning_tiles, sync/adam_bias,
                                  sync/stats_scale, sync/ssim_window,
-                                 sync/camera, sync/background
+                                 sync/camera, sync/background,
+                                 sync/grid_levels (the hash grid's)
   host/                          host code: host/step around all of
-                                 `Trainer.step` and host/frame around all
-                                 of `renderer.render`, so that no moment of
-                                 either lies outside a span; inside them
-                                 host/prepare, host/params, host/finish
+                                 `Trainer.step` and of `DNGTrainer.step`,
+                                 and host/frame around all of
+                                 `renderer.render`, so that no moment of
+                                 them lies outside a span; inside the first
+                                 and the last host/prepare, host/params,
+                                 host/finish
 
 Spans exist only while a profiler records. With none, `span` returns a
 shared null context and `grad_span` a pass-through: no RecordFunction is

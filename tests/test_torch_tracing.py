@@ -220,3 +220,115 @@ def test_spans_change_no_number(sparse_adam):
         assert torch.equal(p0[k], p1[k]), k
         assert torch.equal(a0.m[k], a1.m[k]) and torch.equal(a0.v[k],
                                                              a1.v[k]), k
+
+
+# ------------------------------------------------------------- DNGaussian
+def _dng_trainer(monkeypatch, seed: int = 3, n: int = 120):
+    """A `DNGTrainer` of `n` Gaussians with a small field, 3 orbit views of
+    random targets and depth priors, all three passes and the smoothness
+    term on from its first iteration, on the CPU."""
+    from sparse_view_3dgs_pack_tpu_torch.models import neural_field as nf
+    from sparse_view_3dgs_pack_tpu_torch.ops import hashgrid
+    from sparse_view_3dgs_pack_tpu_torch.train import dng_loop
+    grid = hashgrid.HashGridConfig(num_levels=4, level_dim=2,
+                                   base_resolution=4, log2_hashmap_size=10,
+                                   desired_resolution=32)
+    monkeypatch.setattr(dng_loop, "NeuralFieldConfig",
+                        lambda bound: nf.NeuralFieldConfig(grid=grid,
+                                                           bound=bound))
+    monkeypatch.setattr(dng_loop, "SMOOTH_FROM_ITER", 0)
+    rng = np.random.default_rng(seed)
+    model = gm.create_from_pcd(rng.uniform(-0.8, 0.8, (n, 3)),
+                               rng.random((n, 3)), n_images=3, sh_degree=1,
+                               device="cpu")
+    with torch.no_grad():
+        model.scaling.copy_(torch.as_tensor(
+            np.log(rng.uniform(0.03, 0.12, (n, 3)))))
+    cams = testing.make_orbit_cameras(3, radius=3.0, width=SIZE)
+    for c in cams:
+        c.image = rng.random((SIZE, SIZE, 3)).astype(np.float32)
+        c.invdepthmap = (255.0 * rng.random((SIZE, SIZE))).astype(np.float32)
+        c.depth_reliable = True
+    scene = SimpleNamespace(gaussians=model, cameras_extent=1.0,
+                            getTrainCameras=lambda: cams)
+    opt = Namespace(**{**METHOD_OPTS["dngaussian"], "soft_depth_start": 0,
+                       "densify_until_iter": 0})
+    pipe = Namespace(debug=False, debug_from=-1, antialiasing=False)
+    args = Namespace(sh_degree=1, white_background=False)
+    return dng_loop.DNGTrainer(scene, opt, pipe, args, seed=seed)
+
+
+def test_dng_iteration_records_its_spans(monkeypatch):
+    """One `DNGTrainer.step` under a profiler: the field's three forward
+    evaluations (the soft pass's, the photometric render's and its opacity
+    penalty's) under `step/field` and their three backwards under
+    `grad/field` inside `step/backward`; the depth losses of the hard and
+    soft passes; a backward and an Adam step a pass; all inside
+    `host/step`."""
+    tr = _dng_trainer(monkeypatch)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        tr.step()
+    spans = _spans(prof)
+    names = _names(spans)
+    assert tr.cfg.use_soft and tr.cfg.use_smooth
+    for n, count in (("host/step", 1), ("dng/hard", 1), ("dng/soft", 1),
+                     ("dng/photo", 1), ("step/field", 3), ("grad/field", 3),
+                     ("step/depth_losses", 2), ("step/losses", 1),
+                     ("step/backward", 3), ("step/adam", 3),
+                     ("step/stats", 1)):
+        assert names.count(n) == count, (n, names)
+    # Adam's bias corrections: the Gaussians' three steps, the field's two
+    assert names.count("sync/adam_bias") == 5
+    for inner, outer in (
+            ("grad/field", "step/backward"), ("grad/raster", "step/backward"),
+            ("grad/projection", "step/backward"),
+            ("sync/adam_bias", "step/adam"),
+            ("step/depth_losses", "host/step"),
+            ("step/losses", "dng/photo"), ("dng/hard", "host/step"),
+            ("dng/photo", "host/step")):
+        assert _inside(spans, inner, outer), (inner, outer)
+
+    def within(outer):
+        return sum(_inside([f, *[x for x in spans if x[0] == outer]],
+                           "step/field", outer)
+                   for f in spans if f[0] == "step/field")
+    # the soft pass's evaluation; the photometric render's and, inside the
+    # losses, its opacity penalty's
+    assert (within("dng/soft"), within("dng/photo"),
+            within("step/losses")) == (1, 2, 1)
+    events = prof.events()
+    for name, s, e in spans:
+        if name in ("grad/field", "step/field"):
+            assert any(ev.name.startswith("aten::")
+                       and s <= ev.time_range.start
+                       and ev.time_range.end <= e for ev in events), name
+
+
+def test_dng_spans_change_no_number(monkeypatch):
+    """Two iterations with the profiler on and off give bitwise the same
+    metrics, Gaussians, field, Adam moments and densification
+    statistics."""
+    outs = []
+    for traced in (False, True):
+        tr = _dng_trainer(monkeypatch)
+        with profile(activities=[ProfilerActivity.CPU]) if traced \
+                else contextlib.nullcontext():
+            metrics = [tr.step() for _ in range(2)]
+        outs.append((metrics, tr))
+    (m0, t0), (m1, t1) = outs
+    for a, b in zip(m0, m1):
+        assert torch.equal(a["loss"], b["loss"])
+        assert torch.equal(a["l1"], b["l1"]) and a["n_pairs"] == b["n_pairs"]
+    for k, p in t0.model.params().items():
+        assert torch.equal(p, t1.model.params()[k]), k
+    for k in ("xyz_gradient_accum", "denom", "max_radii2d"):
+        assert torch.equal(getattr(t0.model, k), getattr(t1.model, k)), k
+    for k, p in t0.field.params().items():
+        assert float(t0.field_adam.m[k].abs().max()) > 0 or \
+            k == "coord_center", k
+        assert torch.equal(p, t1.field.params()[k]), k
+    for a, b in ((t0.adam, t1.adam), (t0.field_adam, t1.field_adam)):
+        assert a.step == b.step
+        for k in a.m:
+            assert torch.equal(a.m[k], b.m[k]) and torch.equal(a.v[k],
+                                                               b.v[k]), k
