@@ -7,9 +7,9 @@ card.
 Phases, one line each or more, any failure exits non-zero:
   1 device     the card's name and power limit (nvidia-smi)
   2 build      nvcc-compiles csrc/raster_fwd.cu, csrc/raster_bwd.cu,
-               csrc/probes.cu, csrc/knn.cu and csrc/projection.cu for
-               sm_90a, all at once, into build/kernels/; ptxas registers and
-               spills
+               csrc/probes.cu, csrc/knn.cu, csrc/projection.cu and
+               csrc/adam.cu for sm_90a, all at once, into build/kernels/;
+               ptxas registers and spills
   3 kernel     the forward kernel against its plain PyTorch version at 64x48
                on the rasterizer test scenes, both instantiations (n_contrib
                and log T_final too), both tile shapes, with three colour
@@ -34,6 +34,12 @@ Phases, one line each or more, any failure exits non-zero:
                1297x840), bicycle's (6.1M, 1237x822) and the 1080p
                frame's sizes: ceil() ties, bitwise equal shares, float and
                gradient errors; card ms, the byte bound, the plain ms
+  adam         the Adam kernel (one launch a call over every group) against
+               the plain version, bitwise, one step from a warm state at
+               garden's (3M Gaussians, 177M values) and bicycle's (6.1M,
+               360M) six groups and at DNGaussian's neural field (the
+               16 x 2^19 x 2 table and the MLPs); card ms, the byte bound
+               (28 B a value), the plain ms
   5 train      the `bench.py:126-155` configuration (800x800, 100k Gaussians
                from create_from_pcd, SH 3, lgdwt losses, patch 128) through
                `train_step`: 3 warm-up and 20 timed steps on a fixed view
@@ -242,6 +248,10 @@ KERNELS = {   # name → (source, the TPU kernel or JAX reduction it replaces)
     "project_bwd": (f"{CSRC}/projection.cu",
                     "none (jax.grad of sparse_view_3dgs_pack_tpu/ops/"
                     "projection.py, fused by XLA)"),
+    # no TPU kernel: XLA fused the JAX Adam into the jitted step
+    "adam": (f"{CSRC}/adam.cu",
+             "none (sparse_view_3dgs_pack_tpu/train/optim.py, fused by "
+             "XLA)"),
 }
 TRAIN_KERNELS = ("raster_fwd", "raster_bwd", "segment_sum")
 # every training path projects through both kernels (ProjectFunction)
@@ -427,9 +437,10 @@ def max_errs(out, ref) -> dict:
 
 
 def _counters():
-    from sparse_view_3dgs_pack_tpu_torch.ops import (knn, probes, projection,
-                                                     raster)
-    return {"knn3": knn.knn3,
+    from sparse_view_3dgs_pack_tpu_torch.ops import (adam, knn, probes,
+                                                     projection, raster)
+    return {"adam": adam.adam_multi,
+            "knn3": knn.knn3,
             "project_fwd": projection.project_forward,
             "project_bwd": projection.project_backward,
             "raster_fwd": raster.rasterize_forward,
@@ -497,7 +508,8 @@ def phase_build() -> None:
     registers and spill bytes of each kernel."""
     from sparse_view_3dgs_pack_tpu_torch.ops import _build
     t0 = time.perf_counter()
-    names = ("raster_fwd", "raster_bwd", "probes", "knn", "projection")
+    names = ("raster_fwd", "raster_bwd", "probes", "knn", "projection",
+             "adam")
     with ThreadPoolExecutor(len(names)) as pool:
         built = dict(zip(names, pool.map(_build.build, names)))
     secs = time.perf_counter() - t0
@@ -746,6 +758,91 @@ def phase_projection(device) -> dict:
                             "bound_by": bwd_by, "plain_ms": plain_bwd,
                             "autograd_fwd_bwd_ms": both_ms}}
         del inp, cot, out, grads
+        torch.cuda.empty_cache()
+    return entries
+
+
+ADAM_SIZES = (("garden", 3_000_000), ("bicycle", 6_100_000))
+ADAM_REPS = 20
+# per Gaussian row: xyz, features_dc, features_rest, opacity, scaling,
+# rotation (59 values at SH 3)
+ADAM_GROUPS = (("xyz", (3,)), ("features_dc", (1, 3)),
+               ("features_rest", (15, 3)), ("opacity", (1,)),
+               ("scaling", (3,)), ("rotation", (4,)))
+
+
+def _adam_case(n: int, device):
+    """(parameters, gradients, a warm AdamState at step 15000, lrs) of the
+    six Gaussian groups of `n` rows, or of DNGaussian's neural field at
+    its published widths (`n` 0)."""
+    from sparse_view_3dgs_pack_tpu_torch.train import optim
+    g = torch.Generator(device=device).manual_seed(0)
+    if n:
+        params = {k: torch.randn((n,) + s, generator=g, device=device)
+                  for k, s in ADAM_GROUPS}
+    else:
+        from sparse_view_3dgs_pack_tpu_torch.models.neural_field import (
+            NeuralField, NeuralFieldConfig)
+        field = NeuralField(NeuralFieldConfig(), g)
+        params = {k: p.detach() for k, p in field.params().items()}
+    grads = {k: 1e-3 * torch.randn(p.shape, generator=g, device=device)
+             for k, p in params.items()}
+    state = optim.AdamState(
+        m={k: 1e-3 * torch.randn(p.shape, generator=g, device=device)
+           for k, p in params.items()},
+        v={k: 1e-8 * (0.5 + torch.rand(p.shape, generator=g, device=device))
+           for k, p in params.items()},
+        step=15000)
+    lrs = {k: 1e-3 * (i + 1) for i, k in enumerate(params)}
+    return params, grads, state, lrs
+
+
+def phase_adam(device) -> dict:
+    """The Adam kernel against `adam_update_torch`, one step from the same
+    warm state, p, m and v bitwise; then card ms (CUDA events, mean of
+    ADAM_REPS steps), the bound (28 B a value: p, g, m, v read, p, m, v
+    written) and the plain version's ms, at garden's and bicycle's six
+    groups and at the DNG field. Returns path → kernel → entry."""
+    from sparse_view_3dgs_pack_tpu_torch.ops import adam as adam_ops
+    from sparse_view_3dgs_pack_tpu_torch.train import optim
+    entries = {}
+    for name, n in ADAM_SIZES + (("dng_field", 0),):
+        params, grads, state, lrs = _adam_case(n, device)
+        values = sum(p.numel() for p in params.values())
+        ref = ({k: p.clone() for k, p in params.items()},
+               optim.AdamState({k: m.clone() for k, m in state.m.items()},
+                               {k: v.clone() for k, v in state.v.items()},
+                               state.step))
+        before = adam_ops.adam_multi.launches
+        optim.adam_update(params, grads, state, lrs)
+        launches = adam_ops.adam_multi.launches - before
+        optim.adam_update_torch(ref[0], grads, ref[1], lrs)
+        torch.cuda.synchronize()
+        unequal = {f"{k}/{w}": int((a != b).sum())
+                   for k in params
+                   for w, a, b in (("p", params[k], ref[0][k]),
+                                   ("m", state.m[k], ref[1].m[k]),
+                                   ("v", state.v[k], ref[1].v[k]))
+                   if not torch.equal(a, b)}
+        del ref
+        log("adam", f"{name}: {len(params)} tensors, {values} values, "
+                    f"{launches} launch; one step against the plain "
+                    f"version: " + ("bitwise equal" if not unequal
+                                    else f"values unequal {unequal}"))
+        if unequal or launches != 1:
+            raise AssertionError(f"adam {name}: {unequal}, {launches} "
+                                 f"launches")
+        card = cuda_ms(lambda: optim.adam_update(params, grads, state, lrs),
+                       ADAM_REPS)
+        plain = cuda_ms(lambda: optim.adam_update_torch(params, grads, state,
+                                                        lrs), 3)
+        least, by = bound(28 * values, 11 * values)
+        log("adam", f"{name}: kernel {card:.4f} ms (bound {least:.4f}, {by}:"
+                    f" {100 * least / card:.1f}%), plain {plain:.3f} ms")
+        entries[f"adam_{name}"] = {"adam": {
+            "card_ms": card, "bound_ms": least, "bound_by": by,
+            "plain_ms": plain, "launches": launches, "values": values}}
+        del params, grads, state
         torch.cuda.empty_cache()
     return entries
 
@@ -3961,6 +4058,7 @@ def main() -> None:
     log("bwd", f"all small scenes within {SMALL_TOL} of the largest "
                f"gradient (worst {worst:.3g})")
     paths = dict(phase_projection(device))
+    paths.update(phase_adam(device))
     work = os.path.join(REPO, "build", "chip_smoke")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
@@ -3992,9 +4090,11 @@ def main() -> None:
     print(card)
     # one entry per (kernel, path): launches, times and bound at that
     # path's own shape (projection_<size> the projection kernels at
-    # PROJECTION_SIZES, train and dp 800x800 16x16 tiles, full_schedule a
-    # training render of its trained model at 800x800 16x16 and knn3 on
-    # its 5000 start points, full_schedule_render the inference forward
+    # PROJECTION_SIZES, adam_<size> the Adam kernel at ADAM_SIZES' six
+    # groups and the DNG field, train and dp 800x800 16x16 tiles,
+    # full_schedule a training render of its trained model at 800x800
+    # 16x16 and knn3 on its 5000 start points, full_schedule_render the
+    # inference forward
     # (scene, evals, render CLI) on that model's frame at 32x16, render 1080p
     # 32x16, tile_parallel one 1920x272 band of a 1080p frame at 32x16,
     # fsgs: a 400x400 training render of the trained model and knn3 on

@@ -11,6 +11,14 @@ tensors of the same length as the parameters. DNGaussian's neural field
 trains with the same update over its own parameters (JAX `init_tree_adam`
 / `tree_adam_update`, `optim.py:130-155`): `init_adam(field.params())`
 gives it an AdamState, and so a step counter, of its own.
+
+`adam_update` and `exposure_adam_update` dispatch on the device: CUDA
+tensors take one launch of the hand-written kernel over every group
+(`ops/adam.py::adam_multi`, `csrc/adam.cu`: the bias corrections computed
+on the card from the step, the moments updated in place), or a raise on
+a tensor it does not take; CPU tensors run the plain versions,
+`adam_update_torch` and `exposure_adam_update_torch`, which the kernel
+matches bit for bit on the card.
 """
 
 from __future__ import annotations
@@ -20,6 +28,7 @@ from typing import Callable, Optional
 
 import torch
 
+from ..ops.adam import adam_multi
 from ..utils.general import get_expon_lr_func
 from ..utils.tracing import span
 
@@ -90,6 +99,37 @@ def grads_or_zeros(params: dict) -> dict:
             for k, t in params.items()}
 
 
+@torch.no_grad()
+def adam_update(params: dict, grads: dict, state: AdamState, lrs: dict,
+                visibility: Optional[torch.Tensor] = None) -> None:
+    """One Adam step of every group, in place. `lrs`: name → lr for this
+    step. `visibility`: optional (N,) bool mask — rows outside it keep
+    their parameters AND moments (SparseGaussianAdam semantics). CUDA
+    tensors: one kernel launch for every group; CPU: the plain version."""
+    if next(iter(params.values())).device.type != "cuda":
+        adam_update_torch(params, grads, state, lrs, visibility)
+        return
+    state.step += 1
+    names = list(params)
+    adam_multi([params[k] for k in names], [grads[k] for k in names],
+               [state.m[k] for k in names], [state.v[k] for k in names],
+               [lrs[k] for k in names], state.step, BETA1, BETA2, EPS,
+               visibility)
+
+
+@torch.no_grad()
+def exposure_adam_update(exposure: torch.Tensor, grad: torch.Tensor,
+                         state: ExposureAdamState, lr: float) -> None:
+    """Exposure Adam (eps 1e-8, `optim.py:179-186`), in place. CUDA
+    tensors: one kernel launch; CPU: the plain version."""
+    if exposure.device.type != "cuda":
+        exposure_adam_update_torch(exposure, grad, state, lr)
+        return
+    state.step += 1
+    adam_multi([exposure], [grad], [state.m], [state.v], [lr], state.step,
+               BETA1, BETA2, EXPOSURE_EPS, square_first=False)
+
+
 def _bias_corrections(step: int, device):
     """1 - β^t in float32, as the JAX update computes them (three copies
     of host numbers to the device, each of which waits for it)."""
@@ -101,11 +141,10 @@ def _bias_corrections(step: int, device):
 
 
 @torch.no_grad()
-def adam_update(params: dict, grads: dict, state: AdamState, lrs: dict,
-                visibility: Optional[torch.Tensor] = None) -> None:
-    """One Adam step of every group, in place. `lrs`: name → lr for this
-    step. `visibility`: optional (N,) bool mask — rows outside it keep
-    their parameters AND moments (SparseGaussianAdam semantics)."""
+def adam_update_torch(params: dict, grads: dict, state: AdamState,
+                      lrs: dict,
+                      visibility: Optional[torch.Tensor] = None) -> None:
+    """Plain version of `adam_update`'s kernel, on any device."""
     state.step += 1
     device = next(iter(params.values())).device
     bc1, bc2 = _bias_corrections(state.step, device)
@@ -125,9 +164,9 @@ def adam_update(params: dict, grads: dict, state: AdamState, lrs: dict,
 
 
 @torch.no_grad()
-def exposure_adam_update(exposure: torch.Tensor, grad: torch.Tensor,
-                         state: ExposureAdamState, lr: float) -> None:
-    """Exposure Adam (eps 1e-8, `optim.py:179-186`), in place."""
+def exposure_adam_update_torch(exposure: torch.Tensor, grad: torch.Tensor,
+                               state: ExposureAdamState, lr: float) -> None:
+    """Plain version of `exposure_adam_update`'s kernel, on any device."""
     state.step += 1
     bc1, bc2 = _bias_corrections(state.step, exposure.device)
     m = BETA1 * state.m + (1 - BETA1) * grad

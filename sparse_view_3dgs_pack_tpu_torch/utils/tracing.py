@@ -15,10 +15,11 @@ range of the caller reaches. Names, by prefix:
                                  grad/raster, grad/projection, grad/field
   sync/                          a point inside a step or a frame where the
                                  host waits for the card: sync/binning_count,
-                                 sync/binning_tiles, sync/adam_bias,
-                                 sync/stats_scale, sync/ssim_window,
-                                 sync/camera, sync/background,
-                                 sync/grid_levels (the hash grid's)
+                                 sync/binning_tiles, sync/stats_scale,
+                                 sync/ssim_window, sync/camera,
+                                 sync/background, sync/grid_levels (the
+                                 hash grid's); sync/adam_bias in the plain
+                                 Adam only (off the card's path)
   host/                          host code: host/step around all of
                                  `Trainer.step` and of `DNGTrainer.step`,
                                  and host/frame around all of
