@@ -2330,9 +2330,8 @@ def _dng_pass_moves(model, field, bank, cfg, device) -> None:
     field, so the SH stay); coord_center never (LR 0); each pass steps its
     Adam states once."""
     from sparse_view_3dgs_pack_tpu_torch.train import dng_loop, optim
-    from sparse_view_3dgs_pack_tpu_torch.train.step import sh_band_mask
     view = dng_loop.bank_view(bank, 0)
-    band = sh_band_mask(cfg.sh_degree, cfg.sh_degree, device)
+    active = cfg.sh_degree
     bg = torch.zeros(3, device=device)
     lrs = {k: 1e-4 for k in model.params()}
     flrs = dng_loop.neural_lrs(field)
@@ -2344,13 +2343,13 @@ def _dng_pass_moves(model, field, bank, cfg, device) -> None:
     mlp = sorted(k for k in field.params() if k != "coord_center")
     runs = {
         "hard": (lambda a, fa: dng_loop.hard_pass(
-            model, a, view, DNG_PATCH_IDX, lrs, band, bg, cfg),
+            model, a, view, DNG_PATCH_IDX, lrs, active, bg, cfg),
             ["xyz"], [], (1, 0)),
         "soft": (lambda a, fa: dng_loop.soft_pass(
-            model, field, a, fa, view, DNG_PATCH_IDX, lrs, flrs, band, bg,
+            model, field, a, fa, view, DNG_PATCH_IDX, lrs, flrs, active, bg,
             cfg), ["opacity"], sigma, (1, 1)),
         "photo": (lambda a, fa: dng_loop.photo_pass(
-            model, field, a, fa, view, lrs, flrs, band, bg, cfg),
+            model, field, a, fa, view, lrs, flrs, active, bg, cfg),
             geometry, mlp, (1, 1))}
     snap = lambda m: {k: v.detach().clone() for k, v in m.params().items()}
     for name, (run, want, want_field, steps) in runs.items():

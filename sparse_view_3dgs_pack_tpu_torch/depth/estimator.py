@@ -160,3 +160,18 @@ def get_depth_estimator(kind: str, source_path: str) -> DepthEstimator:
     elif kind != "none":
         raise ValueError(f"unknown depth estimator {kind!r}")
     return NoDepth()
+
+
+def attach_priors(cams, estimator: DepthEstimator, to_prior=None) -> None:
+    """Each camera's mono depth from `estimator` (through `to_prior`,
+    where given) as its `invdepthmap`, with an all-ones `depth_mask` and
+    `depth_reliable` set: the inverse-depth slot a trainer's camera bank
+    reads. A camera the estimator has no depth for is left as it is."""
+    for c in cams:
+        d = estimator.depth_for_camera(c)
+        if d is not None:
+            d = np.asarray(d)
+            c.invdepthmap = (d if to_prior is None
+                             else to_prior(d)).astype(np.float32)
+            c.depth_mask = np.ones_like(c.invdepthmap)
+            c.depth_reliable = True

@@ -19,7 +19,8 @@ What JAX does and the port matches:
 * the metrics are the mean over views; `n_pairs` is the max;
 * the densification statistics are the summed per-view norms of the
   view-space gradient, the summed visible counts and the max of the
-  radii. The view-space gradient is that of the mean, so each view's norm
+  radii (`train/densify.py::densification_stats`, per view, summed
+  here). The view-space gradient is that of the mean, so each view's norm
   is 1/B of its size in a single-device step: JAX differentiates
   `losses.mean()` with respect to the per-view offsets (JAX
   `parallel/dp.py:157-162`), which its module docstring (`:31-35`) calls
@@ -43,6 +44,7 @@ import torch.distributed as dist
 
 from ..device import resolve_device
 from ..models.gaussians import STAT_NAMES, GaussianModel
+from ..train.densify import apply_densification_stats, densification_stats
 from ..train.optim import (AdamState, ExposureAdamState, adam_update,
                            exposure_adam_update)
 from ..train.step import CameraBank, StepConfig, loss_and_grads
@@ -161,37 +163,6 @@ def broadcast_state(group: Optional[DPGroup], model, adam, exp_adam,
         dist.broadcast(t, src=0, group=group.pg)
 
 
-def batch_stats(go: torch.Tensor, radii: torch.Tensor, width: int,
-                height: int):
-    """go (B, N, 2) view-space gradients and radii (B, N) of B views →
-    (N,) summed norms at the (W/2, H/2) scale over the views that see each
-    Gaussian, (N,) their count, (N,) the largest radius."""
-    with span("sync/stats_scale"):     # a copy of host numbers
-        scale = torch.tensor([width * 0.5, height * 0.5],
-                             dtype=torch.float32, device=go.device)
-    g = torch.linalg.vector_norm(go[..., :2] * scale, dim=-1)
-    visible = radii > 0
-    return (torch.where(visible, g, torch.zeros_like(g)).sum(0),
-            visible.to(torch.float32).sum(0),
-            torch.where(visible, radii, torch.zeros_like(radii)).amax(0))
-
-
-@torch.no_grad()
-def apply_stats(model: GaussianModel, norms, counts, max_radii) -> None:
-    model.xyz_gradient_accum += norms
-    model.denom += counts
-    model.max_radii2d.copy_(torch.maximum(model.max_radii2d,
-                                          max_radii.to(torch.float32)))
-
-
-def add_densification_stats_batch(model: GaussianModel, go, radii,
-                                  width: int, height: int) -> None:
-    """Per-view gradient norms summed (go: (B, N, 2), radii: (B, N)), JAX
-    `parallel/dp.py:100-116`: summing the gradient vectors before the
-    norm would cancel across views and understate the statistic."""
-    apply_stats(model, *batch_stats(go, radii, width, height))
-
-
 def _all_reduce(parts: list, op, pg, dtype) -> list:
     """One collective over `parts` flattened into a buffer of `dtype`;
     the parts back in their shapes."""
@@ -230,8 +201,9 @@ def dp_train_step(model: GaussianModel, adam: AdamState,
                             active_degree, bg_color, dwt_running_mean, cfg,
                             loss_scale=scale)
         with span("step/stats"):
-            g, c, r = batch_stats(sg.viewspace_grad[None], sg.radii[None],
-                                  cfg.width, cfg.height)
+            g, c, r = densification_stats(sg.viewspace_grad[None],
+                                          sg.radii[None], cfg.width,
+                                          cfg.height)
         norms, counts = _add(norms, g), _add(counts, c)
         max_r = r if max_r is None else torch.maximum(max_r, r)
         for k in names:
@@ -262,7 +234,7 @@ def dp_train_step(model: GaussianModel, adam: AdamState,
         exposure_adam_update(model.exposure, exp_grad, exp_adam,
                              exposure_lr)
     with span("step/stats"):
-        apply_stats(model, norms, counts, max_r)
+        apply_densification_stats(model, norms, counts, max_r)
     metrics = {k: v / n_views for k, v in zip(keys, sums[len(names) + 4:])}
     metrics["n_pairs"] = int(n_pairs)
     return metrics, run_sum / n_views

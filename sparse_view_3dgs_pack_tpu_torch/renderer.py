@@ -92,7 +92,7 @@ def project_params(params: dict, cam, width: int, height: int,
                              colors=colors, opacities=opacities)
 
 
-def render_core(params: dict, exposure_mat: torch.Tensor, cam,
+def render_core(params: dict, exposure_mat: Optional[torch.Tensor], cam,
                 width: int, height: int, bg_color: torch.Tensor,
                 sh_degree_active: int,
                 scaling_modifier: float = 1.0,
@@ -104,7 +104,9 @@ def render_core(params: dict, exposure_mat: torch.Tensor, cam,
                 confidence=None,
                 opacity_override=None) -> RenderResult:
     """params: name → tensor (`GaussianModel.params()`), all on one device;
-    cam: `data.cameras.CameraParams` (numpy arrays or tensors).
+    cam: `data.cameras.CameraParams` (numpy arrays or tensors);
+    `exposure_mat` (3, 4) is read only with `use_trained_exp`, and may be
+    None without it.
 
     inference=False is the differentiable training render: 16×16 tiles and
     `RasterizeFunction`; the returned `viewspace_points` keeps its gradient.
@@ -189,7 +191,7 @@ def render_neural(model: GaussianModel, camera, bg_color, field: NeuralField,
         field, model.xyz, model.opacity,
         torch.as_tensor(cam.cam_center, dtype=torch.float32, device=device))
     bg = torch.as_tensor(bg_color, dtype=torch.float32, device=device)
-    return render_core(model.params(), torch.eye(3, 4, device=device), cam,
+    return render_core(model.params(), None, cam,
                        camera.width, camera.height, bg, sh_degree_active,
                        scaling_modifier, antialiasing, False, color,
                        inference=True, opacity_override=opacity)

@@ -25,24 +25,47 @@ from . import optim
 
 
 @torch.no_grad()
-def add_densification_stats(model: GaussianModel,
-                            viewspace_grad_pixels: torch.Tensor,
-                            radii: torch.Tensor, width: int,
-                            height: int) -> None:
-    """viewspace_grad_pixels: (N, 2) d(loss)/d(means2d in pixels). The norm
-    is taken at the (W/2, H/2) scale of the reference CUDA backward's NDC
-    gradient, keeping its 0.0002 threshold (`densify.py:42-43`)."""
+def densification_stats(viewspace_grads: torch.Tensor, radii: torch.Tensor,
+                        width: int, height: int) -> tuple:
+    """viewspace_grads (B, N, 2) d(loss)/d(means2d in pixels) and radii
+    (B, N) of B views → (N,) the per-view gradient norms summed over the
+    views that see each Gaussian, (N,) their count, (N,) the largest
+    radius (JAX `parallel/dp.py:100-116`; summing the gradient vectors
+    before the norm would cancel across views). Each norm is taken at the
+    (W/2, H/2) scale of the reference CUDA backward's NDC gradient,
+    keeping its 0.0002 threshold (`densify.py:42-43`)."""
     with span("sync/stats_scale"):     # a copy of host numbers
         scale = torch.tensor([width * 0.5, height * 0.5],
                              dtype=torch.float32,
-                             device=viewspace_grad_pixels.device)
-    g = torch.linalg.vector_norm(viewspace_grad_pixels[:, :2] * scale, dim=-1)
+                             device=viewspace_grads.device)
+    g = torch.linalg.vector_norm(viewspace_grads[..., :2] * scale, dim=-1)
     visible = radii > 0
-    model.xyz_gradient_accum += torch.where(visible, g, torch.zeros_like(g))
-    model.denom += visible.to(torch.float32)
-    model.max_radii2d.copy_(torch.where(
-        visible, torch.maximum(model.max_radii2d, radii.to(torch.float32)),
-        model.max_radii2d))
+    return (torch.where(visible, g, torch.zeros_like(g)).sum(0),
+            visible.to(torch.float32).sum(0),
+            torch.where(visible, radii, torch.zeros_like(radii)).amax(0))
+
+
+@torch.no_grad()
+def apply_densification_stats(model: GaussianModel, norms: torch.Tensor,
+                              counts: torch.Tensor,
+                              max_radii: torch.Tensor) -> None:
+    """Add `densification_stats`' sums to the model's accumulators."""
+    model.xyz_gradient_accum += norms
+    model.denom += counts
+    model.max_radii2d.copy_(torch.maximum(model.max_radii2d,
+                                          max_radii.to(torch.float32)))
+
+
+def add_densification_stats(model: GaussianModel,
+                            viewspace_grads: torch.Tensor,
+                            radii: torch.Tensor, width: int,
+                            height: int) -> None:
+    """The statistics of one view ((N, 2) and (N,)) or of B views ((B, N,
+    2) and (B, N)) into the model's accumulators."""
+    if radii.dim() == 1:
+        viewspace_grads, radii = viewspace_grads[None], radii[None]
+    apply_densification_stats(model, *densification_stats(
+        viewspace_grads, radii, width, height))
 
 
 class DensifyResult(NamedTuple):

@@ -27,27 +27,27 @@ deviations"); it and the camera order come from a `random.Random(seed)`.
 `DNGTrainer` holds the model, the field, both Adam states, the schedules,
 the camera bank, the spiral and that `Random`; its `step()` is one
 iteration (the SH schedule, the view and patch draws, `dng_step`, the
-densify event, the near-range prune), and `train_dngaussian` is the CLI's
-loop around it. The passes run under the spans (`utils/tracing.py`)
-"dng/hard", "dng/soft" and "dng/photo"; inside them "step/depth_losses"
-(the hard and soft passes' depth losses), "step/losses" (the photometric
-loss and the three penalties), "step/backward", "step/adam" (the
-Gaussians' and the field's Adam) and "step/stats"; the field's
-evaluations under "step/field" and "grad/field"
-(`models/neural_field.py`); all of `DNGTrainer.step` under "host/step".
+densify event, the near-range prune, the debug check), and
+`train_dngaussian` is the CLI's loop around it (`loop.drive`). The passes
+run under the spans (`utils/tracing.py`) "dng/hard", "dng/soft" and
+"dng/photo"; inside them "step/depth_losses" (the hard and soft passes'
+depth losses), "step/losses" (the photometric loss and the three
+penalties), "step/backward", "step/adam" (the Gaussians' and the field's
+Adam) and "step/stats"; the field's evaluations under "step/field" and
+"grad/field" (`models/neural_field.py`); all of `DNGTrainer.step` under
+"host/step".
 """
 
 from __future__ import annotations
 
 import os
 import random
-import time
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from ..depth.estimator import get_depth_estimator
+from ..depth.estimator import attach_priors, get_depth_estimator
 from ..losses.dng import (loss_depth_smoothness, patch_norm_mse_loss,
                           patch_norm_mse_loss_global)
 from ..losses.photometric import l1_loss
@@ -60,12 +60,11 @@ from ..scene import Scene
 from ..utils.image import psnr
 from ..utils.pose_utils import generate_spiral_path
 from ..utils.tracing import span
-from . import debug
 from .densify import add_densification_stats, densify_and_prune, prune_only
-from .loop import format_eval
-from .optim import (AdamState, adam_update, grads_or_zeros, init_adam,
-                    make_lr_schedules)
-from .step import CameraBank, sh_band_mask
+from .loop import StepTrainer, drive
+from .optim import (AdamState, adam_update, cleared, grads_or_zeros,
+                    init_adam)
+from .step import CameraBank
 
 # The JAX loop reads `opt.neural_grid` / `opt.neural_net`, which config.py
 # never defines, so these constants are its LRs; `neural_*_lr_init/final`
@@ -121,12 +120,14 @@ def _depth_losses(depth, depth_mono, image_like, patch_idx: int,
     return loss
 
 
-def _render(p: dict, cam, bg, cfg: DNGConfig, color=None, opacity=None):
-    """The training render (16×16 tiles, differentiable rasterizer)."""
-    return render_core(p, torch.eye(3, 4, device=p["xyz"].device), cam,
-                       cfg.width, cfg.height, bg,
-                       sh_degree_active=cfg.sh_degree, inference=False,
-                       override_color=color, opacity_override=opacity)
+def _render(p: dict, cam, bg, cfg: DNGConfig, active_degree: int,
+            color=None, opacity=None):
+    """The training render (16×16 tiles, differentiable rasterizer), the
+    SH evaluated to the active degree."""
+    return render_core(p, None, cam, cfg.width, cfg.height, bg,
+                       sh_degree_active=min(active_degree, cfg.sh_degree),
+                       inference=False, override_color=color,
+                       opacity_override=opacity)
 
 
 class _View(NamedTuple):
@@ -137,27 +138,24 @@ class _View(NamedTuple):
     alpha_mask: torch.Tensor
 
 
-def _banded(model: GaussianModel, band: torch.Tensor, frozen=()) -> tuple:
-    """(the parameters, a copy with the SH bands above the active degree
-    masked out and the `frozen` groups detached), gradients cleared."""
-    params = model.params()
-    for t in params.values():
-        t.grad = None
+def _frozen(model: GaussianModel, frozen=()) -> tuple:
+    """(the parameters, a copy with the `frozen` groups detached),
+    gradients cleared."""
+    params = cleared(model.params())
     p = dict(params)
-    p["features_rest"] = params["features_rest"] * band[1:][None]
     for k in frozen:
         p[k] = p[k].detach()
     return params, p
 
 
-def hard_pass(model, adam, view: _View, patch_idx, lrs, band, bg,
+def hard_pass(model, adam, view: _View, patch_idx, lrs, active_degree, bg,
               cfg: DNGConfig) -> torch.Tensor:
     """Pass 1: the depth losses of a render at opacity 0.95 with unit
     colours; only xyz gets a gradient. One Adam step of every group."""
     with span("dng/hard"):
-        params, p = _banded(model, band, ("scaling", "rotation"))
+        params, p = _frozen(model, ("scaling", "rotation"))
         n = model.num_points
-        res = _render(p, view.cam, bg, cfg,
+        res = _render(p, view.cam, bg, cfg, active_degree,
                       torch.ones((n, 3), device=bg.device),
                       torch.full((n,), HARD_OPACITY, device=bg.device))
         with span("step/depth_losses"):
@@ -171,20 +169,19 @@ def hard_pass(model, adam, view: _View, patch_idx, lrs, band, bg,
 
 
 def soft_pass(model, field, adam, field_adam, view: _View, patch_idx, lrs,
-              field_lrs, band, bg, cfg: DNGConfig) -> torch.Tensor:
+              field_lrs, active_degree, bg, cfg: DNGConfig) -> torch.Tensor:
     """Pass 2: the depth losses with the geometry detached; the opacity
     (through the field when `use_neural`) gets the gradient. One Adam step
     of every group and of the field."""
     with span("dng/soft"):
-        params, p = _banded(model, band, ("xyz", "scaling", "rotation"))
-        fparams = field.params()
-        for t in fparams.values():
-            t.grad = None
+        params, p = _frozen(model, ("xyz", "scaling", "rotation"))
+        fparams = cleared(field.params())
         color = opacity = None
         if cfg.use_neural:
             color, opacity = gaussian_outputs(field, p["xyz"], p["opacity"],
                                               view.cam.cam_center)
-        res = _render(p, view.cam, bg, cfg, color, opacity)
+        res = _render(p, view.cam, bg, cfg, active_degree, color,
+                      opacity)
         with span("step/depth_losses"):
             loss = view.has_depth * _depth_losses(
                 res.expected_depth, view.depth_mono, view.gt, patch_idx, cfg)
@@ -232,22 +229,21 @@ def _photo_loss(image, view: _View, params: dict, field: NeuralField,
 
 
 def photo_pass(model, field, adam, field_adam, view: _View, lrs, field_lrs,
-               band, bg, cfg: DNGConfig) -> dict:
+               active_degree, bg, cfg: DNGConfig) -> dict:
     """Pass 3: L1 + SSIM (masked for DTU) + the shape, scale and opacity
     penalties; the field is evaluated twice, for the render and for the
     opacity penalty, both with gradient (JAX `dng_loop.py:209-241`). One
     Adam step of every group and of the field, then the densification
     statistics."""
     with span("dng/photo"):
-        params, p = _banded(model, band)
-        fparams = field.params()
-        for t in fparams.values():
-            t.grad = None
+        params, p = _frozen(model)
+        fparams = cleared(field.params())
         color = opacity = None
         if cfg.use_neural:
             color, opacity = gaussian_outputs(field, p["xyz"], p["opacity"],
                                               view.cam.cam_center)
-        res = _render(p, view.cam, bg, cfg, color, opacity)
+        res = _render(p, view.cam, bg, cfg, active_degree, color,
+                      opacity)
         with span("step/losses"):
             loss, ll1 = _photo_loss(res.render, view, params, field, cfg)
         with span("step/backward"):
@@ -283,14 +279,14 @@ def dng_step(model: GaussianModel, field: NeuralField, adam: AdamState,
     the photometric pass's metrics, with the hard pass's loss
     (`hard_loss`) and the soft pass's where it ran (`soft_loss`)."""
     view = bank_view(bank, cam_idx)
-    band = sh_band_mask(active_degree, cfg.sh_degree, bg.device)
-    hard = hard_pass(model, adam, view, patch_idx, lrs, band, bg, cfg)
+    hard = hard_pass(model, adam, view, patch_idx, lrs, active_degree, bg,
+                     cfg)
     soft = None
     if cfg.use_soft:
         soft = soft_pass(model, field, adam, field_adam, view, patch_idx,
-                         lrs, field_lrs, band, bg, cfg)
+                         lrs, field_lrs, active_degree, bg, cfg)
     metrics = photo_pass(model, field, adam, field_adam, view, lrs,
-                         field_lrs, band, bg, cfg)
+                         field_lrs, active_degree, bg, cfg)
     metrics["hard_loss"] = hard
     if soft is not None:
         metrics["soft_loss"] = soft
@@ -339,7 +335,7 @@ def near_range_mask(xyz: torch.Tensor, centers: torch.Tensor,
     return (d < near_range).any(dim=1)
 
 
-class DNGTrainer:
+class DNGTrainer(StepTrainer):
     """DNGaussian's training state on the model's device, stepped one
     iteration at a time (as `train/loop.py::Trainer` is for the main
     path). `scene` has `gaussians`, `getTrainCameras()` and
@@ -351,39 +347,24 @@ class DNGTrainer:
 
     def __init__(self, scene, opt, pipe, dataset_args, seed: int = 0,
                  near_range: float = 0.0, dataset_type: str = "llff"):
-        self.scene, self.opt, self.pipe = scene, opt, pipe
+        super().__init__(scene, opt, pipe, dataset_args, random.Random(seed),
+                         dataset_args.white_background
+                         or dataset_type == "blender")
         self.near_range, self.dataset_type = near_range, dataset_type
-        self.model = scene.gaussians
-        self.device = self.model.xyz.device
-        cams = scene.getTrainCameras()
-        self.width, self.height = cams[0].width, cams[0].height
-        self.n_views = len(cams)
-        self.sh_degree = dataset_args.sh_degree
-        self.bank = CameraBank.from_cameras(cams, 3, self.device)
-        self.adam = init_adam(self.model.params())
         self.field = NeuralField(
             NeuralFieldConfig(bound=max(scene.cameras_extent, 1.0)),
             torch.Generator(device=self.device).manual_seed(0))
         self.field_adam = init_adam(self.field.params())
         self.field_lrs = neural_lrs(self.field)
-        self.lr_scheds = make_lr_schedules(opt, scene.cameras_extent)
-        white = dataset_args.white_background or dataset_type == "blender"
-        self.background = torch.tensor(
-            [1.0, 1.0, 1.0] if white else [0.0, 0.0, 0.0],
-            device=self.device)
         self.spiral = torch.tensor(
-            np.stack([c.camera_center for c in
-                      generate_spiral_path(cams, SPIRAL_FRAMES)]),
+            np.stack([c.camera_center for c in generate_spiral_path(
+                scene.getTrainCameras(), SPIRAL_FRAMES)]),
             device=self.device)
         self.use_neural = bool(getattr(opt, "use_neural", 1))
-        self.rng = random.Random(seed)
         self.counts = dict(soft_passes=0, near_prunes=0, near_pruned=0,
                            peak_gaussians=self.model.num_points)
-        self.iteration = 0
-        self.active_sh_degree = 0
-        self.viewpoint_stack = []
-        # the last step's view, patch index and configuration
-        self.cam_idx = self.patch_idx = None
+        # the last step's patch index and configuration
+        self.patch_idx = None
         self.cfg = None
 
     def config(self, it: int) -> DNGConfig:
@@ -399,24 +380,20 @@ class DNGTrainer:
 
     def step(self) -> dict:
         """One iteration, under the "host/step" span: the SH schedule, the
-        view and patch draws, `dng_step`, the densify event and the
-        near-range prune. Returns the photometric pass's metrics."""
+        view and patch draws, `dng_step`, the densify event, the
+        near-range prune and the debug check. Returns the photometric
+        pass's metrics."""
         with span("host/step"):
             self.iteration += 1
             it, o, model = self.iteration, self.opt, self.model
-            if it % 1000 == 0 and self.active_sh_degree < self.sh_degree:
-                self.active_sh_degree += 1
-            if not self.viewpoint_stack:
-                self.viewpoint_stack = list(range(self.n_views))
-            self.cam_idx = self.viewpoint_stack.pop(
-                self.rng.randint(0, len(self.viewpoint_stack) - 1))
+            self.grow_sh(1000)
+            self.cam_idx = self.pick_camera()
             self.patch_idx = self.rng.randint(0, 11)
             self.cfg = cfg = self.config(it)
-            lrs = {k: f(it) for k, f in self.lr_scheds.items()}
             metrics = dng_step(model, self.field, self.adam, self.field_adam,
-                               self.bank, self.cam_idx, self.patch_idx, lrs,
-                               self.field_lrs, self.active_sh_degree,
-                               self.background, cfg)
+                               self.bank, self.cam_idx, self.patch_idx,
+                               self.lrs(), self.field_lrs,
+                               self.active_sh_degree, self.background, cfg)
             self.counts["soft_passes"] += int(cfg.use_soft)
 
             if (o.densify_from_iter < it < o.densify_until_iter
@@ -436,63 +413,45 @@ class DNGTrainer:
                     model, self.adam, near_range_mask(
                         model.xyz.detach(), self.spiral, self.near_range))
                 self.counts["near_prunes"] += 1
+            self.check(metrics)
             return metrics
+
+    def save_scene(self, iteration: int) -> None:
+        """The PLY and, with the field, `neural_renderer.npz` beside it:
+        colour and opacity live in the field, so the PLY alone does not
+        reproduce a render (reference `train_llff.py:232-235`)."""
+        super().save_scene(iteration)
+        if self.use_neural:
+            save_neural_npz(os.path.join(
+                self.dataset_args.model_path, "point_cloud",
+                f"iteration_{iteration}", "neural_renderer.npz"), self.field)
 
 
 def train_dngaussian(dataset, opt, pipe, args, device,
                      near_range: float = 0.0,
                      dataset_type: str = "llff") -> dict:
-    """The DNGaussian training loop on `device`: a `DNGTrainer` stepped
-    `opt.iterations` times, with the debug check, the evaluations and the
-    saves between steps. dataset_type: `llff`, `dtu` (black background,
+    """The DNGaussian training loop on `device`: a `DNGTrainer` driven by
+    `loop.drive` for `opt.iterations` steps, evaluating the test views
+    through the field. dataset_type: `llff`, `dtu` (black background,
     masked photometric loss, reference `train_dtu.py`) or `blender`
     (white background). Returns its counts: soft passes, near-range
     prunes and the points they removed, the peak Gaussian count."""
     scene = Scene(dataset, sh_degree=dataset.sh_degree, device=device)
     estimator = get_depth_estimator(getattr(args, "depth_estimator", "auto"),
                                     dataset.source_path)
-    for c in scene.getTrainCameras():
-        d = estimator.depth_for_camera(c)
-        if d is not None:
-            c.invdepthmap = (255.0 - np.asarray(d)).astype(np.float32)
-            c.depth_mask = np.ones_like(c.invdepthmap)
-            c.depth_reliable = True
+    attach_priors(scene.getTrainCameras(), estimator, lambda d: 255.0 - d)
     trainer = DNGTrainer(scene, opt, pipe, dataset,
                          seed=getattr(args, "seed", 0),
                          near_range=near_range, dataset_type=dataset_type)
-    save_iters = set(args.save_iterations)
-    test_iters = set(getattr(args, "test_iterations", None) or [])
-    t0 = time.time()
-    for it in range(1, opt.iterations + 1):
-        metrics = trainer.step()
-        model, field = trainer.model, trainer.field
-        debug.check_step(pipe, it, metrics, model, dataset.model_path,
-                         {"cam_idx": trainer.cam_idx,
-                          "active_sh_degree": trainer.active_sh_degree})
-        if it % 100 == 0:
-            print(f"[{it}/{opt.iterations}] loss="
-                  f"{float(metrics['loss']):.5f}", flush=True)
-        if it in test_iters or it == opt.iterations:
-            stats = _dng_evaluate(model, field, scene.getTestCameras(),
-                                  trainer.background, trainer.cfg)
-            if stats:
-                print(f"\n[ITER {it}] Evaluating test: {format_eval(stats)} "
-                      f"({model.num_points} Gaussians)", flush=True)
-        if it in save_iters or it == opt.iterations:
-            scene.gaussians = model
-            scene.save(it)
-            if trainer.use_neural:
-                # colour and opacity live in the field: the PLY alone does
-                # not reproduce a render (reference `train_llff.py:232-235`)
-                save_neural_npz(os.path.join(
-                    dataset.model_path, "point_cloud", f"iteration_{it}",
-                    "neural_renderer.npz"), field)
 
-    elapsed = time.time() - t0
-    print(f"DNGaussian training took {elapsed:.1f}s for {opt.iterations} "
-          f"iterations ({opt.iterations / max(elapsed, 1e-9):.2f} it/s)")
+    def evaluate():
+        return [("test", _dng_evaluate(trainer.model, trainer.field,
+                                       scene.getTestCameras(),
+                                       trainer.background, trainer.cfg))]
+    drive(trainer, opt.iterations, args.save_iterations,
+          getattr(args, "test_iterations", None) or (), evaluate,
+          "DNGaussian training", ())
     counts = trainer.counts
     print("DNG counts: " + " ".join(f"{k}={v}" for k, v in counts.items()),
           flush=True)
-    scene.gaussians = trainer.model
     return counts

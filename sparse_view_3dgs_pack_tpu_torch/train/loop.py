@@ -13,6 +13,8 @@ eval, save, checkpoint (`train/checkpoint.py`). In a data-parallel run
 every rank draws the same cameras, background and densify draws (the
 host RNGs seeded alike, the densify generator by the iteration), so the
 replicas stay bitwise equal; rank 0 alone evaluates, logs and writes.
+`StepTrainer` holds what the trainers of every method share (FSGS's,
+DNGaussian's and mult-dwtgs' too), and `drive` is those three CLI loops.
 """
 
 from __future__ import annotations
@@ -39,7 +41,12 @@ from . import debug
 from .densify import densify_and_prune, reset_opacity
 from .optim import (init_adam, init_exposure_adam, make_exposure_schedule,
                     make_lr_schedules)
-from .step import CameraBank, StepConfig
+from .step import CameraBank, step_config
+
+# the 3DGS prune threshold and the screen-size limit after the first
+# opacity reset (reference `train.py:265-276`)
+MIN_OPACITY = 0.005
+MAX_SCREEN_SIZE = 20
 
 
 def evaluate_cameras(model, cameras, bg, active_sh,
@@ -79,69 +86,111 @@ def format_eval(stats: dict) -> str:
     return line
 
 
-class Trainer:
-    """Owns the model, optimizer states and schedules on one device.
+class StepTrainer:
+    """What every method's trainer holds on the model's device, and the
+    decisions their steps share. `scene` has `gaussians`,
+    `getTrainCameras()` and `cameras_extent`; `dataset_args` gives
+    `sh_degree` (and `model_path` for the debug snapshot); `rng` draws the
+    views (the `random` module, or a seeded `random.Random`); `white`
+    trains on a white background."""
+
+    def __init__(self, scene, opt, pipe, dataset_args, rng, white: bool):
+        self.scene, self.opt, self.pipe = scene, opt, pipe
+        self.dataset_args = dataset_args
+        self.rng = rng
+        self.model = scene.gaussians
+        self.device = self.model.xyz.device
+        cams = scene.getTrainCameras()
+        self.width, self.height = cams[0].width, cams[0].height
+        self.n_views = len(cams)
+        self.sh_degree = dataset_args.sh_degree
+        self.bank = CameraBank.from_cameras(cams, 3, self.device)
+        self.adam = init_adam(self.model.params())
+        self.lr_scheds = make_lr_schedules(opt, scene.cameras_extent)
+        self.background = torch.tensor(
+            [1.0, 1.0, 1.0] if white else [0.0, 0.0, 0.0],
+            device=self.device)
+        self.iteration = 0
+        self.active_sh_degree = 0
+        self.viewpoint_stack = []
+        self.cam_idx = None           # the last step's view
+
+    def grow_sh(self, every: int) -> None:
+        """One SH band more every `every` iterations, up to the model's."""
+        if (self.iteration % every == 0
+                and self.active_sh_degree < self.sh_degree):
+            self.active_sh_degree += 1
+
+    def lrs(self) -> dict:
+        return {k: f(self.iteration) for k, f in self.lr_scheds.items()}
+
+    def pick_camera(self) -> int:
+        """A training view, drawn without replacement until all are
+        taken."""
+        if not self.viewpoint_stack:
+            self.viewpoint_stack = list(range(self.n_views))
+        return self.viewpoint_stack.pop(
+            self.rng.randint(0, len(self.viewpoint_stack) - 1))
+
+    def check(self, metrics: dict, write: bool = True) -> None:
+        """The debug snapshot on a non-finite loss (`train/debug.py`)."""
+        debug.check_step(self.pipe, self.iteration, metrics, self.model,
+                         getattr(self.dataset_args, "model_path", "."),
+                         {"cam_idx": self.cam_idx,
+                          "active_sh_degree": self.active_sh_degree},
+                         write=write)
+
+    def densify_3dgs(self, reset_on_white: bool) -> None:
+        """The 3DGS densify and opacity-reset schedule (reference
+        `train.py:265-276`); with `reset_on_white`, a reset at
+        `densify_from_iter` too."""
+        it, o = self.iteration, self.opt
+        if it >= o.densify_until_iter:
+            return
+        if it > o.densify_from_iter and it % o.densification_interval == 0:
+            densify_and_prune(
+                self.model, self.adam, o.densify_grad_threshold,
+                MIN_OPACITY, self.scene.cameras_extent,
+                max_screen_size=(MAX_SCREEN_SIZE
+                                 if it > o.opacity_reset_interval else 0),
+                percent_dense=o.percent_dense,
+                generator=torch.Generator(device=self.device).manual_seed(it))
+        if (it % o.opacity_reset_interval == 0
+                or (reset_on_white and it == o.densify_from_iter)):
+            reset_opacity(self.model, self.adam)
+
+    def save_scene(self, iteration: int) -> None:
+        self.scene.gaussians = self.model
+        self.scene.save(iteration)
+
+
+class Trainer(StepTrainer):
+    """The 3DGS / LGDWT-GS trainer: `StepTrainer` with the exposure Adam,
+    the DWT running mean and the step of `parallel/dp.py`.
 
     With a `group` (`parallel/dp.py::DPGroup`) each step trains on one view
     per rank; rank 0's initial state is broadcast to the others."""
 
     def __init__(self, scene, opt, pipe, dataset_args, group=None):
+        super().__init__(scene, opt, pipe, dataset_args, random,
+                         dataset_args.white_background)
         self.dp_n = group.world_size if group is not None else 1
         self.group = group
         self.rank = group.rank if group is not None else 0
-        self.scene = scene
-        self.opt = opt
-        self.pipe = pipe
-        self.dataset_args = dataset_args
-
-        self.model = scene.gaussians
-        self.device = self.model.xyz.device
-        cams = scene.getTrainCameras()
-        self.width = cams[0].width
-        self.height = cams[0].height
-        self.channels = 3
-        self.bank = CameraBank.from_cameras(cams, self.channels, self.device)
-
-        self.adam = init_adam(self.model.params())
         self.exp_adam = init_exposure_adam(self.model.exposure)
         self.dwt_running_mean = torch.ones((), device=self.device)
-        self.iteration = 0
         self.start_iteration = 0      # where this run began (a checkpoint's)
-        self.active_sh_degree = 0
-        self.lr_scheds = make_lr_schedules(opt, scene.cameras_extent)
         self.exposure_sched = make_exposure_schedule(opt)
         self.depth_weight_sched = get_expon_lr_func(
             opt.depth_l1_weight_init, opt.depth_l1_weight_final,
             max_steps=opt.iterations)
-        self.background = torch.tensor(
-            [1.0, 1.0, 1.0] if dataset_args.white_background
-            else [0.0, 0.0, 0.0], device=self.device)[:self.channels]
-        self.cfg = self._config()
-        self.viewpoint_stack = []
+        self.cfg = step_config(opt, pipe, dataset_args, self.width,
+                               self.height)
         self._broadcast()
 
     def _broadcast(self):
         broadcast_state(self.group, self.model, self.adam, self.exp_adam,
                         self.dwt_running_mean)
-
-    def _config(self) -> StepConfig:
-        o = self.opt
-        return StepConfig(
-            width=self.width, height=self.height, channels=self.channels,
-            sh_degree=self.dataset_args.sh_degree,
-            lambda_dssim=o.lambda_dssim,
-            antialiasing=getattr(self.pipe, "antialiasing", False),
-            train_test_exp=getattr(self.dataset_args, "train_test_exp", False),
-            sparse_adam=(o.optimizer_type == "sparse_adam"),
-            dwt_enable=getattr(o, "dwt_enable", False),
-            dwt_weights=tuple(getattr(o, f"dwt_{k}_weight", 0.0) for k in (
-                "ll1", "lh1", "hl1", "hh1", "ll2", "lh2", "hl2", "hh2")),
-            patch_dwt_enable=getattr(o, "patch_dwt_enable", False),
-            patch_dwt_weight=getattr(o, "patch_dwt_weight", 0.1),
-            patch_size=getattr(o, "patch_size", 128),
-            patch_percentile=getattr(o, "patch_percentile", 0.2),
-            patch_dwt_lh1_weight=getattr(o, "patch_dwt_lh1_weight", 1.0),
-            patch_dwt_hl1_weight=getattr(o, "patch_dwt_hl1_weight", 1.0))
 
     def serve_viewer(self):
         """Poll the SIBR remote-viewer socket once (reference polls every
@@ -160,12 +209,6 @@ class Trainer:
 
         network_gui.serve_once(render_fn, self.dataset_args.source_path)
 
-    def pick_camera(self) -> int:
-        if not self.viewpoint_stack:
-            self.viewpoint_stack = list(range(len(self.scene.getTrainCameras())))
-        return self.viewpoint_stack.pop(
-            random.randint(0, len(self.viewpoint_stack) - 1))
-
     def step(self) -> dict:
         """One training step, under the "host/step" span: "host/prepare"
         (the viewer, the schedules, the background, the view), the step
@@ -175,20 +218,18 @@ class Trainer:
             with span("host/prepare"):
                 self.iteration += 1
                 it = self.iteration
-                o = self.opt
                 self.serve_viewer()
-                if (it % 1000 == 0
-                        and self.active_sh_degree < self.dataset_args.sh_degree):
-                    self.active_sh_degree += 1
-                lrs = {k: f(it) for k, f in self.lr_scheds.items()}
-                random_bg = getattr(o, "random_background", False)
+                self.grow_sh(1000)
+                lrs = self.lrs()
+                random_bg = getattr(self.opt, "random_background", False)
                 with span("sync/background", on=random_bg):
-                    bg = (torch.as_tensor(np.random.random(self.channels),
+                    bg = (torch.as_tensor(np.random.random(3),
                                           dtype=torch.float32,
                                           device=self.device)
                           if random_bg else self.background)
                 # every rank draws all dp_n views and takes its own
                 cams = [self.pick_camera() for _ in range(self.dp_n)]
+                self.cam_idx = cams[0] if self.dp_n == 1 else cams
                 exposure_lr = self.exposure_sched(it)
                 depth_weight = self.depth_weight_sched(it)
             metrics, self.dwt_running_mean = dp_train_step(
@@ -197,41 +238,17 @@ class Trainer:
                 lrs, exposure_lr, depth_weight, self.active_sh_degree, bg,
                 self.cfg, group=self.group)
             with span("host/finish"):
-                self._finish(it, cams, metrics)
+                # snapshot on a non-finite loss (the reference's CHECK_CUDA
+                # dump); every replica raises, rank 0 writes
+                self.check(metrics, write=self.rank == 0)
+                self.densify_3dgs(
+                    reset_on_white=self.dataset_args.white_background)
             return metrics
-
-    def _finish(self, it: int, cams: list, metrics: dict) -> None:
-        o = self.opt
-        # snapshot on a non-finite loss (the reference's CHECK_CUDA dump);
-        # every replica raises, rank 0 writes
-        debug.check_step(self.pipe, it, metrics, self.model,
-                         getattr(self.dataset_args, "model_path", "."),
-                         {"cam_idx": cams[0] if self.dp_n == 1 else cams,
-                          "active_sh_degree": self.active_sh_degree},
-                         write=self.rank == 0)
-
-        # densification events (reference train.py:265-276)
-        if it < o.densify_until_iter:
-            if it > o.densify_from_iter and it % o.densification_interval == 0:
-                size_thr = 20 if it > o.opacity_reset_interval else 0
-                gen = torch.Generator(device=self.device).manual_seed(it)
-                densify_and_prune(
-                    self.model, self.adam, o.densify_grad_threshold, 0.005,
-                    self.scene.cameras_extent, max_screen_size=size_thr,
-                    percent_dense=o.percent_dense, generator=gen)
-            if (it % o.opacity_reset_interval == 0
-                    or (self.dataset_args.white_background
-                        and it == o.densify_from_iter)):
-                reset_opacity(self.model, self.adam)
 
     def evaluate(self, cameras) -> dict:
         return evaluate_cameras(self.model, cameras, self.background,
                                 self.active_sh_degree,
                                 getattr(self.pipe, "antialiasing", False))
-
-    def save_scene(self, iteration: int):
-        self.scene.gaussians = self.model
-        self.scene.save(iteration)
 
     def save_checkpoint(self, path: str):
         ckpt.save_checkpoint(path, self.model, self.adam, self.exp_adam,
@@ -246,8 +263,7 @@ class Trainer:
         self.adam, self.exp_adam = c.adam, c.exp_adam
         self.dwt_running_mean, self.iteration = c.dwt_running_mean, c.iteration
         self.start_iteration = c.iteration
-        self.active_sh_degree = min(self.iteration // 1000,
-                                    self.dataset_args.sh_degree)
+        self.active_sh_degree = min(self.iteration // 1000, self.sh_degree)
         self._broadcast()
 
 
@@ -312,3 +328,39 @@ def simple_train(scene, opt, pipe, dataset_args, testing_iterations=(),
                 os.path.join(scene.model_path, f"chkpnt{it}.npz"))
     reporter.close()
     return trainer, time.time() - t0
+
+
+def timing_line(label: str, seconds: float, iterations: int) -> None:
+    """`<label> took <s>s for <n> iterations (<it/s> it/s)`, the line
+    `full_schedule.read_train_log` and the CLI tests read."""
+    print(f"{label} took {seconds:.1f}s for {iterations} iterations "
+          f"({iterations / max(seconds, 1e-9):.2f} it/s)", flush=True)
+
+
+def drive(trainer: StepTrainer, iterations: int, save_iterations,
+          test_iterations, evaluate: Optional[Callable], label: str,
+          terms: tuple) -> None:
+    """A method's CLI loop: `trainer.step()` `iterations` times; after a
+    step, every 100 iterations the line `[it/N] loss=… <term>=…` (the
+    metrics named in `terms` after the loss), at `test_iterations` and the
+    last one line per (name, stats) that `evaluate()` returns, at
+    `save_iterations` and the last the trainer's `save_scene`; then the
+    timing line under `label`."""
+    save, test = set(save_iterations), set(test_iterations)
+    t0 = time.time()
+    for it in range(1, iterations + 1):
+        metrics = trainer.step()
+        if it % 100 == 0:
+            print(f"[{it}/{iterations}] " + " ".join(
+                f"{k}={float(metrics[k]):.5f}" for k in ("loss", *terms)),
+                flush=True)
+        if evaluate is not None and (it in test or it == iterations):
+            for name, stats in evaluate():
+                if stats:
+                    print(f"\n[ITER {it}] Evaluating {name}: "
+                          f"{format_eval(stats)} "
+                          f"({trainer.model.num_points} Gaussians)",
+                          flush=True)
+        if it in save or it == iterations:
+            trainer.save_scene(it)
+    timing_line(label, time.time() - t0, iterations)

@@ -92,6 +92,13 @@ def make_exposure_schedule(opt_args) -> Callable:
         max_steps=getattr(opt_args, "iterations", 30000))
 
 
+def cleared(params: dict) -> dict:
+    """`params` (name → parameter) with their gradients cleared."""
+    for t in params.values():
+        t.grad = None
+    return params
+
+
 def grads_or_zeros(params: dict) -> dict:
     """name → the parameter's gradient, zeros where the backward gave it
     none (a group the step detached still takes its Adam step)."""

@@ -3,7 +3,9 @@
 Counterpart of `sparse_view_3dgs_pack_tpu/train/recipes.py`. Vanilla 3DGS
 is LGDWT with the DWT terms off; both run `simple_train`. FSGS runs
 `fsgs_loop.train_fsgs`, DNGaussian `dng_loop.train_dngaussian`, mult-dwtgs
-`nir_loop.train_nir` (whose scene `train_method` returns, as JAX's does).
+`nir_loop.train_nir` (whose scene `train_method` returns, as JAX's does);
+each of those three steps its method's trainer (`FSGSTrainer`,
+`DNGTrainer`, `NIRTrainer`) through `loop.drive`.
 For `3dgs` / `lgdwt` the SIBR remote viewer listens on `--ip` / `--port`
 unless `--disable_viewer` is given (`Trainer.serve_viewer`); `fsgs`,
 `dngaussian` and `mult-dwtgs` train without it, as in JAX (its FSGS loop
@@ -25,7 +27,7 @@ from torch.profiler import ProfilerActivity, profile
 from ..scene import Scene
 from ..utils.general import safe_state
 from ..viewer import network_gui
-from .loop import simple_train
+from .loop import simple_train, timing_line
 
 
 def _progress_printer(total):
@@ -88,9 +90,7 @@ def train_method(method: str, dataset, opt, pipe, args, device, group=None):
     if stats:
         print(f"\n[ITER {opt.iterations}] Evaluating test: "
               f"L1 {stats['l1']:.4f} PSNR {stats['psnr']:.2f}")
-    ran = opt.iterations - trainer.start_iteration
-    print(f"Training took {elapsed:.1f}s for {ran} iterations "
-          f"({ran / max(elapsed, 1e-9):.2f} it/s)")
+    timing_line("Training", elapsed, opt.iterations - trainer.start_iteration)
 
 
 def _scene(dataset, device, group):

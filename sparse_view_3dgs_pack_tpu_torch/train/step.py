@@ -115,8 +115,31 @@ class StepConfig(NamedTuple):
 _DWT_KEYS = ("ll1", "lh1", "hl1", "hh1", "ll2", "lh2", "hl2", "hh2")
 
 
+def step_config(opt, pipe, dataset_args, width: int,
+                height: int) -> StepConfig:
+    """The step's configuration from the CLI's option groups (an option a
+    group lacks takes the value of a run with the DWT losses off)."""
+    return StepConfig(
+        width=width, height=height, sh_degree=dataset_args.sh_degree,
+        lambda_dssim=opt.lambda_dssim,
+        antialiasing=getattr(pipe, "antialiasing", False),
+        train_test_exp=getattr(dataset_args, "train_test_exp", False),
+        sparse_adam=(opt.optimizer_type == "sparse_adam"),
+        dwt_enable=getattr(opt, "dwt_enable", False),
+        dwt_weights=tuple(getattr(opt, f"dwt_{k}_weight", 0.0)
+                          for k in _DWT_KEYS),
+        patch_dwt_enable=getattr(opt, "patch_dwt_enable", False),
+        patch_dwt_weight=getattr(opt, "patch_dwt_weight", 0.1),
+        patch_size=getattr(opt, "patch_size", 128),
+        patch_percentile=getattr(opt, "patch_percentile", 0.2),
+        patch_dwt_lh1_weight=getattr(opt, "patch_dwt_lh1_weight", 1.0),
+        patch_dwt_hl1_weight=getattr(opt, "patch_dwt_hl1_weight", 1.0))
+
+
 def sh_band_mask(active_degree: int, max_degree: int, device):
-    """(K, 1) float mask of the SH coefficients of bands ≤ active_degree."""
+    """(K, 1) float mask of the SH coefficients of bands ≤ active_degree:
+    the JAX step's way to the active degree, the reference the tests hold
+    the port's active-degree renders to."""
     idx = torch.arange((max_degree + 1) ** 2, device=device)
     band = torch.floor(torch.sqrt(idx.to(torch.float32))).to(torch.int64)
     return (band <= active_degree).to(torch.float32)[:, None]

@@ -21,8 +21,9 @@ range of the caller reaches. Names, by prefix:
                                  hash grid's); sync/adam_bias in the plain
                                  Adam only (off the card's path)
   host/                          host code: host/step around all of
-                                 `Trainer.step` and of `DNGTrainer.step`,
-                                 and host/frame around all of
+                                 a trainer's step (`Trainer`,
+                                 `FSGSTrainer`, `NIRTrainer`,
+                                 `DNGTrainer`), and host/frame around all of
                                  `renderer.render`, so that no moment of
                                  them lies outside a span; inside the first
                                  and the last host/prepare, host/params,

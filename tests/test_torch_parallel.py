@@ -31,6 +31,7 @@ from sparse_view_3dgs_pack_tpu_torch.parallel.tiles import \
     make_tile_parallel_render_fn
 from sparse_view_3dgs_pack_tpu_torch.render import to_u8
 from sparse_view_3dgs_pack_tpu_torch.renderer import render
+from sparse_view_3dgs_pack_tpu_torch.train import densify
 from torch_port import REPO, subprocess_env
 
 N_VIEWS, SIZE = 8, 32
@@ -158,9 +159,10 @@ def test_dp_step_matches_jax_and_world_of_one(tmp_path):
 
 
 def test_add_densification_stats_batch_matches_jax():
-    """Three batches of 4 views' view-space gradients and radii: the
-    summed per-view norms, counts and max radii of JAX
-    `add_densification_stats_batch`, index by index."""
+    """Three batches of 4 views' view-space gradients and radii through
+    `train/densify.py::add_densification_stats` (the statistic
+    `dp_train_step` takes per view): the summed per-view norms, counts and
+    max radii of JAX `add_densification_stats_batch`, index by index."""
     state, fixture = _fixture()
     n, cap = fixture["n"], state.capacity
     model = gm.from_jax_state(state, device="cpu").model
@@ -170,8 +172,8 @@ def test_add_densification_stats_batch_matches_jax():
         radii = rng.integers(-3, 6, (4, cap)).clip(0).astype(np.int32)
         state = jax_dp.add_densification_stats_batch(
             state, jnp.asarray(go), jnp.asarray(radii), 48, 32)
-        dp.add_densification_stats_batch(model, torch.tensor(go[:, :n]),
-                                         torch.tensor(radii[:, :n]), 48, 32)
+        densify.add_densification_stats(model, torch.tensor(go[:, :n]),
+                                        torch.tensor(radii[:, :n]), 48, 32)
     for k in STATS:
         np.testing.assert_allclose(getattr(model, k).numpy(),
                                    np.asarray(getattr(state, k))[:n],

@@ -267,16 +267,27 @@ def _trainer(dev, n: int = 400, size: int = 48, sh_degree: int = 1):
     return Trainer(scene, opt, pipe, args), cams
 
 
-@pytest.mark.parametrize("active", range(4))
-def test_step_evaluates_sh_to_the_active_degree_as_the_band_mask(active):
+@pytest.mark.parametrize("case", [
+    *(pytest.param(("cpu", a), id=str(a)) for a in range(4)),
+    *(pytest.param(("cuda", a), id=f"cuda-{a}", marks=pytest.mark.cuda)
+      for a in range(4))])
+def test_step_evaluates_sh_to_the_active_degree_as_the_band_mask(
+        case, monkeypatch):
     """`loss_and_grads` evaluates the SH colour to the active degree where
-    the JAX step multiplies the bands above it by 0: the loss, every
-    parameter's gradient and the view-space gradient bitwise those of the
-    band-masked features evaluated at the full degree."""
+    the JAX step multiplies the bands above it by 0 (and every training
+    render of FSGS, DNGaussian and mult-dwtgs does the same): the loss,
+    every parameter's gradient and the view-space gradient bitwise those
+    of the band-masked features evaluated at the full degree, on the CPU
+    and through the kernels on a card."""
     from sparse_view_3dgs_pack_tpu_torch.train import step
-    tr, _ = _trainer("cpu", sh_degree=3)
+    kind, active = case
+    dev = _card() if kind == "cuda" else torch.device("cpu")
+    # cuDNN may otherwise pick an SSIM convolution backward that adds with
+    # atomics
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    tr, _ = _trainer(dev, sh_degree=3)
     model, cfg = tr.model, tr.cfg
-    running = torch.ones(())
+    running = torch.ones((), device=dev)
     args = (tr.bank.gt[0], tr.bank.alpha_mask[0], tr.bank.invdepth[0],
             tr.bank.depth_mask[0], tr.bank.has_depth[0], tr.background,
             0.5, running, cfg, cfg.sh_degree)
@@ -286,7 +297,7 @@ def test_step_evaluates_sh_to_the_active_degree_as_the_band_mask(active):
     for t in params.values():
         t.grad = None
     p = dict(params)
-    band = step.sh_band_mask(active, cfg.sh_degree, "cpu")
+    band = step.sh_band_mask(active, cfg.sh_degree, dev)
     p["features_rest"] = params["features_rest"] * band[1:][None]
     loss, _, _, res = step.view_losses(p, model.exposure[0],
                                        tr.bank.camera(0), *args)
