@@ -115,8 +115,10 @@ Phases, one line each or more, any failure exits non-zero:
                trains; K3 and the segment sum against their plain versions
                on a hard-pass and a soft-pass render (depth cotangent
                only); host and device ms per pass (profile of 3
-               iterations), the plain hash-grid encode's forward and
-               backward ms
+               iterations); the hash-grid kernels at 300k points against
+               the plain encode (the forward bit for bit, the backward's
+               gradients within 1e-5, zero at the same entries) and their
+               ms beside the plain encode's and their bounds
   nir          mult-dwtgs (RGB+NIR): `nir_step` at the `bench.py:126-155`
                configuration (800x800, 100k Gaussians from
                create_from_pcd(use_nir=True), SH 3, lgdwt losses, patch
@@ -252,12 +254,21 @@ KERNELS = {   # name → (source, the TPU kernel or JAX reduction it replaces)
     "adam": (f"{CSRC}/adam.cu",
              "none (sparse_view_3dgs_pack_tpu/train/optim.py, fused by "
              "XLA)"),
+    # no TPU kernel: the JAX package left the encode to XLA
+    "hashgrid_fwd": (f"{CSRC}/hashgrid.cu",
+                     "none (sparse_view_3dgs_pack_tpu/ops/hashgrid.py, "
+                     "XLA)"),
+    "hashgrid_bwd": (f"{CSRC}/hashgrid.cu",
+                     "none (jax.grad of sparse_view_3dgs_pack_tpu/ops/"
+                     "hashgrid.py, XLA)"),
 }
 TRAIN_KERNELS = ("raster_fwd", "raster_bwd", "segment_sum")
 # every training path projects through both kernels (ProjectFunction)
 FSGS_KERNELS = TRAIN_KERNELS + ("knn3", "project_fwd", "project_bwd")
-DNG_KERNELS = FSGS_KERNELS    # knn3: create_from_pcd's scale init
-NIR_KERNELS = FSGS_KERNELS    # likewise
+# knn3: create_from_pcd's scale init; the field through both hash-grid
+# kernels
+DNG_KERNELS = FSGS_KERNELS + ("hashgrid_fwd", "hashgrid_bwd")
+NIR_KERNELS = FSGS_KERNELS    # knn3 likewise
 PROBE_KERNELS = tuple(k for k in KERNELS if k.startswith("probe_"))
 SMALL_TOL = 1e-5     # phases 3-4 at 64x48: abs (depth, gradients: relative
 FULL_TOL = 1e-4      # to the largest); 1080p / 800p: sums in another order
@@ -437,9 +448,12 @@ def max_errs(out, ref) -> dict:
 
 
 def _counters():
-    from sparse_view_3dgs_pack_tpu_torch.ops import (adam, knn, probes,
-                                                     projection, raster)
+    from sparse_view_3dgs_pack_tpu_torch.ops import (adam, hashgrid, knn,
+                                                     probes, projection,
+                                                     raster)
     return {"adam": adam.adam_multi,
+            "hashgrid_fwd": hashgrid.hashgrid_forward,
+            "hashgrid_bwd": hashgrid.hashgrid_backward,
             "knn3": knn.knn3,
             "project_fwd": projection.project_forward,
             "project_bwd": projection.project_backward,
@@ -509,7 +523,7 @@ def phase_build() -> None:
     from sparse_view_3dgs_pack_tpu_torch.ops import _build
     t0 = time.perf_counter()
     names = ("raster_fwd", "raster_bwd", "probes", "knn", "projection",
-             "adam")
+             "adam", "hashgrid")
     with ThreadPoolExecutor(len(names)) as pool:
         built = dict(zip(names, pool.map(_build.build, names)))
     secs = time.perf_counter() - t0
@@ -2371,15 +2385,131 @@ def _dng_pass_moves(model, field, bank, cfg, device) -> None:
                                  f"{want}, {want_field}, {steps}")
 
 
+HASHGRID_POINTS = 300_000   # dng_llff3's Gaussians
+# The backward kernel's gradients against autograd's of the plain encode,
+# relative to each one's largest entry: the kernel sums a table row's terms
+# (and a point's levels) by atomics, in an order that changes from run to
+# run, the plain version by a sort (as test_torch_hashgrid_card.py's)
+HASHGRID_GRAD_TOL = 1e-5
+
+
+def hashgrid_timing(device) -> dict:
+    """The hash-grid kernels (`hashgrid_forward`, `hashgrid_backward` with
+    the points' gradient) beside the plain encode (`hashgrid_encode_torch`
+    and its autograd) at the published field and 300k points over and past
+    its bound, some on the clamp's faces. Checked first: the forward the
+    plain one's bit for bit; the backward's table and points' gradients
+    within `HASHGRID_GRAD_TOL` of autograd's, zero on both sides at the
+    same entries (the rows no point touches, the points the clamp holds),
+    or AssertionError. Then timed with CUDA events: the forward, and the
+    forward plus the backward, each beside its least time on the card
+    (`bound`). The least bytes read the table once (the kernels' design
+    keeps it in L2), not each (point, level)'s 8 corners: the forward's
+    that and the points in, the features out; the backward's the
+    cotangent and the points in, the table (for the points' gradient),
+    the table's gradient and the points' written. Each also with the 8
+    corners' features from device memory (`corner_ms`). Operations
+    `gsbench/work/dng.py::encode_ops` (twice that back). And the whole
+    field's evaluation, `field_bound` there. Returns the ms, the errors
+    and the bounds."""
+    from gsbench.work.dng import encode_ops, field_bound
+    from sparse_view_3dgs_pack_tpu_torch.ops import hashgrid as hg
+    cfg, n = hg.HashGridConfig(), HASHGRID_POINTS
+    gen = torch.Generator(device=device).manual_seed(0)
+    table = (2 * torch.rand((cfg.num_levels, 1 << cfg.log2_hashmap_size,
+                             cfg.level_dim), generator=gen,
+                            device=device) - 1) * 0.3
+    x = 2.2 * torch.rand((n, 3), generator=gen, device=device) - 1.1
+    x[:8] = torch.tensor([[1, 1, 1], [-1, -1, -1], [1, -1, 0], [0, 1, -1],
+                          [1, 0.3, 0.2], [-1, 0.5, 1], [2, 2, 2],
+                          [0, 0, 0]], device=device)
+    cot = torch.randn((n, cfg.output_dim), generator=gen, device=device)
+    with torch.no_grad():
+        same = torch.equal(hg.hashgrid_forward(table, x, cfg),
+                           hg.hashgrid_encode_torch(table, x, cfg))
+    t, p = table.clone().requires_grad_(), x.clone().requires_grad_()
+
+    def plain_both():
+        t.grad = p.grad = None
+        hg.hashgrid_encode_torch(t, p, cfg).backward(cot)
+
+    plain_both()
+    g_table, g_x = hg.hashgrid_backward(table, x, cot, cfg, need_x=True)
+    err, zeros = {}, {}
+    for name, got, want in (("table", g_table, t.grad), ("x", g_x, p.grad)):
+        err[name] = float((got - want).abs().max()) / float(
+            want.abs().max())
+        zeros[name] = (torch.equal(got == 0, want == 0),
+                       int((want == 0).sum()))
+    untouched = zeros["table"][1] // cfg.level_dim
+    del g_table, g_x
+
+    with torch.no_grad():
+        ms = {"kernel_fwd": cuda_ms(lambda: hg.hashgrid_forward(
+                  table, x, cfg), 50),
+              "plain_fwd": cuda_ms(lambda: hg.hashgrid_encode_torch(
+                  table, x, cfg), 10)}
+    ms["kernel_bwd"] = cuda_ms(lambda: hg.hashgrid_backward(
+        table, x, cot, cfg), 50)
+    ms["kernel_both"] = ms["kernel_fwd"] + ms["kernel_bwd"]
+    ms["plain_both"] = cuda_ms(plain_both, 10)
+    with open(os.path.join(REPO, "gsbench", "configs",
+                           "dng_llff3.json")) as f:
+        field = json.load(f)["field"]
+    corners = n * cfg.num_levels * 8 * cfg.level_dim * 4
+    table_bytes = table.numel() * 4
+    feats, points = n * cfg.output_dim * 4, n * 3 * 4
+    ops = n * encode_ops(field)
+    bounds = {}
+    for key, reads in (("", min(corners, table_bytes)), ("corner_",
+                                                           corners)):
+        bounds[key + "fwd"] = bound(reads + points + feats, ops)
+        bounds[key + "bwd"] = bound(feats + points + reads + table_bytes
+                                    + points, 2 * ops)
+    field_s, field_by = field_bound(n, field)
+    b_fwd, b_bwd = bounds["fwd"], bounds["bwd"]
+    log("dng", f"hash-grid encode of {n} points ({cfg.num_levels} levels "
+               f"x {cfg.level_dim}, 2^{cfg.log2_hashmap_size} table), "
+               f"against the plain encode: forward bit for bit: {same}; "
+               f"backward's table gradient {err['table']:.3g}, points' "
+               f"{err['x']:.3g} (relative to the largest; tolerance "
+               f"{HASHGRID_GRAD_TOL:g}), zero at the same entries: "
+               f"{zeros['table'][0]} / {zeros['x'][0]} ({untouched} rows "
+               f"no point touches, {zeros['x'][1]} coordinates the clamp "
+               f"holds)")
+    log("dng", f"hash-grid encode: forward kernel {ms['kernel_fwd']:.4f} "
+               f"ms against plain {ms['plain_fwd']:.4f} (bound "
+               f"{b_fwd[0]:.4f} by {b_fwd[1]} with the table read once; "
+               f"{bounds['corner_fwd'][0]:.4f} with every corner from "
+               f"device memory); forward + backward kernels "
+               f"{ms['kernel_both']:.4f} ms against plain autograd "
+               f"{ms['plain_both']:.4f} (bound {b_fwd[0] + b_bwd[0]:.4f},"
+               f" the backward's by {b_bwd[1]}; "
+               f"{bounds['corner_fwd'][0] + bounds['corner_bwd'][0]:.4f} "
+               f"with every corner from device memory); the whole "
+               f"field's evaluation bound {1e3 * field_s:.4f} ms (by "
+               f"{field_by})")
+    if not same:
+        raise AssertionError("dng: the hash-grid forward kernel is not the "
+                             "plain encode bit for bit")
+    bad = [k for k in err if not (err[k] <= HASHGRID_GRAD_TOL
+                                  and zeros[k][0] and zeros[k][1] > 0)]
+    if bad:
+        raise AssertionError(f"dng: the hash-grid backward kernel's "
+                             f"{bad} gradient is not autograd's of the "
+                             f"plain encode: {err}, zeros {zeros}")
+    return {"ms": ms, "err": err, "bounds": bounds}
+
+
 def phase_dng(work: str, scene: str, knn_entry: dict, device) -> dict:
     """DNGaussian through the train CLI (in this process, launches
     counted) on the fsgs phase's few-shot fixture with the full-width
     field, past the soft-pass start and the first near-range prunes; the
     render CLI (through neural_renderer.npz, with both videos) and the
     metrics CLI; the gates; each pass alone; K3 and the segment sum on a
-    hard-pass and a soft-pass render; per-pass host and device time, the
-    plain hash-grid encode's time. Returns the dng path's kernel
-    entries."""
+    hard-pass and a soft-pass render; per-pass host and device time; the
+    hash-grid kernels checked against the plain encode and timed beside
+    it (`hashgrid_timing`). Returns the dng path's kernel entries."""
     import contextlib
     import cv2
     import io
@@ -2393,7 +2523,6 @@ def phase_dng(work: str, scene: str, knn_entry: dict, device) -> dict:
     from sparse_view_3dgs_pack_tpu_torch.models import gaussians as gm
     from sparse_view_3dgs_pack_tpu_torch.models.neural_field import (
         NeuralField, NeuralFieldConfig)
-    from sparse_view_3dgs_pack_tpu_torch.ops.hashgrid import hashgrid_encode
     from sparse_view_3dgs_pack_tpu_torch.train import dng_loop
     from sparse_view_3dgs_pack_tpu_torch.train.loop import format_eval
     from sparse_view_3dgs_pack_tpu_torch.train.step import CameraBank
@@ -2583,26 +2712,20 @@ def phase_dng(work: str, scene: str, knn_entry: dict, device) -> dict:
     log("dng", _profile_line(prof, f"3 DNG iterations ({model.num_points} "
                                    f"Gaussians, all three passes)"))
 
-    x = (model.xyz - field.coord_center).detach()
-    grid = field.cfg.grid
-    cot = torch.randn((x.shape[0], grid.output_dim), device=device)
-    with torch.no_grad():
-        t_enc = cuda_ms(lambda: hashgrid_encode(field.encoder, x, grid,
-                                                field.cfg.bound), 20)
-
-    def fwd_bwd():
-        field.encoder.grad = None
-        hashgrid_encode(field.encoder, x, grid, field.cfg.bound).backward(
-            cot)
-
-    t_both = cuda_ms(fwd_bwd, 20)
-    log("dng", f"plain hash-grid encode of {x.shape[0]} points "
-               f"({grid.num_levels} levels x {grid.level_dim}, 2^"
-               f"{grid.log2_hashmap_size} table): forward {t_enc:.3f} ms, "
-               f"forward + backward {t_both:.3f} ms (backward "
-               f"{t_both - t_enc:.3f} ms, the table's scatter-add)")
+    hg = hashgrid_timing(device)
+    hg_ms, hg_b = hg["ms"], hg["bounds"]
     out_entries = dict(entries["soft"])
     out_entries["knn3"] = dict(knn_entry)
+    out_entries["hashgrid_fwd"] = {
+        "card_ms": hg_ms["kernel_fwd"], "plain_ms": hg_ms["plain_fwd"],
+        "bound_ms": hg_b["fwd"][0], "bound_by": hg_b["fwd"][1],
+        "corner_bound_ms": hg_b["corner_fwd"][0], "max_abs_err": 0.0}
+    out_entries["hashgrid_bwd"] = {
+        "card_ms": hg_ms["kernel_bwd"],
+        "plain_ms": hg_ms["plain_both"] - hg_ms["plain_fwd"],
+        "bound_ms": hg_b["bwd"][0], "bound_by": hg_b["bwd"][1],
+        "corner_bound_ms": hg_b["corner_bwd"][0],
+        "max_abs_err": max(hg["err"].values())}
     for name, entry in out_entries.items():
         entry["launches"] = used[name]
     return out_entries
@@ -4097,7 +4220,8 @@ def main() -> None:
     # (scene, evals, render CLI) on that model's frame at 32x16, render 1080p
     # 32x16, tile_parallel one 1920x272 band of a 1080p frame at 32x16,
     # fsgs: a 400x400 training render of the trained model and knn3 on
-    # its 30k dense init, dng: its soft-pass render, nir_step: the 800x800
+    # its 30k dense init, dng: its soft-pass render and the hash-grid
+    # kernels at 300k points, nir_step: the 800x800
     # NIR render (C = 1) of its 20 timed steps, nir: a 400x400 NIR render
     # of the trained model and knn3 on its 2000-point SfM init, probes: the
     # shape each entry names, viewer: a 1920x1080 frame served from the

@@ -59,9 +59,11 @@ class GaussianModel(nn.Module):
         else:
             self.register_parameter(NIR_ALBEDO, None)
             self.register_parameter(NIR_GAIN, None)
+        # contiguous: the Adam kernel takes no strided parameter, and a
+        # PLY's SH rows arrive transposed
         for name, value in values.items():
             setattr(self, name, nn.Parameter(
-                torch.tensor(np.asarray(value, np.float32))))
+                torch.tensor(np.ascontiguousarray(value, np.float32))))
         if exposure is None:
             exposure = np.broadcast_to(np.eye(3, 4, dtype=np.float32),
                                        (max(n_images, 1), 3, 4))

@@ -25,11 +25,12 @@ BUILD_DIR = PKG_DIR.parent / "build" / "kernels"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-# per source: the probes, the k-NN search, the projection and Adam round
-# every f32 operation on its own, as their plain PyTorch versions do, so
-# that the two can agree bit for bit
+# per source: the probes, the k-NN search, the projection, Adam and the
+# hash grid round every f32 operation on its own, as their plain PyTorch
+# versions do, so that the two can agree bit for bit
 SOURCE_FLAGS = {"probes": ("--fmad=false",), "knn": ("--fmad=false",),
-                "projection": ("--fmad=false",), "adam": ("--fmad=false",)}
+                "projection": ("--fmad=false",), "adam": ("--fmad=false",),
+                "hashgrid": ("--fmad=false",)}
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}

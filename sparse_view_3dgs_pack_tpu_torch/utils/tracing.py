@@ -17,9 +17,10 @@ range of the caller reaches. Names, by prefix:
                                  host waits for the card: sync/binning_count,
                                  sync/binning_tiles, sync/stats_scale,
                                  sync/ssim_window, sync/camera,
-                                 sync/background, sync/grid_levels (the
-                                 hash grid's); sync/adam_bias in the plain
-                                 Adam only (off the card's path)
+                                 sync/background; sync/grid_levels and
+                                 sync/adam_bias only in the plain hash
+                                 grid and the plain Adam (off the card's
+                                 path)
   host/                          host code: host/step around all of
                                  a trainer's step (`Trainer`,
                                  `FSGSTrainer`, `NIRTrainer`,

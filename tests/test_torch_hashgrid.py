@@ -1,7 +1,11 @@
-"""Port parity for DNGaussian's encoders: the hash-grid encoding (values and
-the table gradient, on a configuration with dense and hashed levels) and
-the SH direction basis, against the JAX package (`ops/hashgrid.py`,
-`ops/shencode.py`). Inputs are made with numpy from a seed."""
+"""Port parity for DNGaussian's encoders: the hash-grid encoding (values,
+the table's gradient and the points', on a configuration with dense and
+hashed levels) and the SH direction basis, against the JAX package
+(`ops/hashgrid.py`, `ops/shencode.py`); on the CPU, `hashgrid_encode`'s
+dispatch to the plain composition, the kernels' argument checks and the
+field's module-level encode that the benchmark's `coarse_grid` fault
+patches. Inputs are made with numpy from a seed. The kernels themselves
+are held to the plain version on a card in `test_torch_hashgrid_card.py`."""
 
 import jax
 import jax.numpy as jnp
@@ -11,6 +15,7 @@ import torch
 
 from sparse_view_3dgs_pack_tpu.ops import hashgrid as jax_hashgrid
 from sparse_view_3dgs_pack_tpu.ops import shencode as jax_shencode
+from sparse_view_3dgs_pack_tpu_torch.models import neural_field as nf
 from sparse_view_3dgs_pack_tpu_torch.ops import hashgrid, shencode
 import torch_port  # noqa: F401  (one intra-op thread)
 
@@ -77,6 +82,130 @@ def test_hashgrid_table_gradient_matches_jax():
     np.testing.assert_allclose(got, want, atol=TOL * np.abs(want).max(),
                                rtol=0)
     np.testing.assert_array_equal(got == 0, want == 0)
+
+
+def test_hashgrid_x_gradient_matches_jax():
+    """The points' gradient under a random cotangent, against jax.grad:
+    ≤ 1e-6 of its largest entry, and exactly zero on both sides where the
+    clamp holds a coordinate outside [0, 1]. On the faces (u exactly 0 or
+    1) JAX's clip splits the tie between its two branches and passes half;
+    torch.clamp's backward, which the kernel follows, passes all of it:
+    there the port's is twice JAX's."""
+    x, table, cot = _inputs(2)
+    jcfg = jax_hashgrid.HashGridConfig(**CFG)
+    want = np.asarray(jax.grad(lambda p: jnp.sum(
+        jax_hashgrid.hashgrid_encode(jnp.asarray(table), p, jcfg, BOUND)
+        * cot))(jnp.asarray(x)))
+    xt = torch.tensor(x, requires_grad=True)
+    (hashgrid.hashgrid_encode(torch.tensor(table), xt,
+                              hashgrid.HashGridConfig(**CFG), BOUND)
+     * torch.tensor(cot)).sum().backward()
+    got = xt.grad.numpy()
+    u = (x + BOUND) / (2 * BOUND)
+    face, outside = (u == 0) | (u == 1), (u < 0) | (u > 1)
+    assert face.sum() >= 12 and outside.sum() >= 100
+    atol = TOL * np.abs(want).max()
+    np.testing.assert_allclose(got[~face], want[~face], atol=atol, rtol=0)
+    np.testing.assert_allclose(got[face], 2 * want[face], atol=atol, rtol=0)
+    assert not got[outside].any() and not want[outside].any()
+    assert np.abs(got[~face & ~outside]).min() > 0
+
+
+@pytest.mark.parametrize("grads", ["table_and_x", "table", "x"])
+def test_hashgrid_function_on_the_cpu_is_the_plain_composition(grads):
+    """`hashgrid_encode`'s dispatch on CPU tensors: its values are the
+    plain composition's and its gradients autograd's of it, bit for bit;
+    it gives a gradient to exactly the inputs that ask for one.
+    `HashGridFunction` itself takes CUDA tensors only."""
+    x, table, cot = _inputs(3)
+    cfg = hashgrid.HashGridConfig(**CFG)
+
+    def run(fn):
+        t = torch.tensor(table, requires_grad="table" in grads)
+        p = torch.tensor(x, requires_grad="x" in grads)
+        out = fn(t, p, cfg, BOUND)
+        (out * torch.tensor(cot)).sum().backward()
+        return out.detach(), t.grad, p.grad
+
+    got = run(hashgrid.hashgrid_encode)
+    want = run(hashgrid.hashgrid_encode_torch)
+    assert torch.equal(got[0], want[0])
+    for g, w in zip(got[1:], want[1:]):
+        assert (g is None) == (w is None)
+        assert g is None or torch.equal(g, w)
+    assert (got[1] is None, got[2] is None) == ("table" not in grads,
+                                                "x" not in grads)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        run(hashgrid.HashGridFunction.apply)
+
+
+@pytest.mark.parametrize("entry", ["forward", "backward"])
+def test_the_kernel_entries_refuse_cpu_tensors(entry):
+    """`hashgrid_forward` and `hashgrid_backward` have no CPU path: on CPU
+    tensors they raise before any launch, and the counters stay."""
+    x, table, cot = (torch.tensor(a) for a in _inputs(6, 40))
+    cfg = hashgrid.HashGridConfig(**CFG)
+    call = {"forward": lambda: hashgrid.hashgrid_forward(table, x, cfg,
+                                                         BOUND),
+            "backward": lambda: hashgrid.hashgrid_backward(
+                table, x, cot, cfg, BOUND)}[entry]
+    counts = (hashgrid.hashgrid_forward.launches,
+              hashgrid.hashgrid_backward.launches)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        call()
+    assert (hashgrid.hashgrid_forward.launches,
+            hashgrid.hashgrid_backward.launches) == counts
+
+
+def test_the_fields_encode_is_the_module_level_name(monkeypatch):
+    """`NeuralField.neural_density` reaches the encode through the
+    module-level name `neural_field.hashgrid_encode`: patching it, as the
+    benchmark's `coarse_grid` fault does, changes the field's output."""
+    field = nf.NeuralField(nf.NeuralFieldConfig(
+        grid=hashgrid.HashGridConfig(**CFG), bound=BOUND),
+        torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        field.encoder.normal_(generator=torch.Generator().manual_seed(2))
+    x = torch.tensor(_inputs(4, 200)[0])
+    sigma, geo = field.neural_density(x)
+    calls = []
+
+    def coarse(table, p, cfg, bound):
+        calls.append(p.shape[0])
+        out = hashgrid.hashgrid_encode(table, p, cfg, bound)
+        return torch.cat([out[:, :-cfg.level_dim],
+                          torch.zeros_like(out[:, -cfg.level_dim:])], 1)
+
+    monkeypatch.setattr(nf, "hashgrid_encode", coarse)
+    sigma2, geo2 = field.neural_density(x)
+    assert calls == [200]
+    assert not torch.equal(sigma, sigma2) and not torch.equal(geo, geo2)
+
+
+@pytest.mark.parametrize("change", ["dtype", "contiguous", "x_shape",
+                                    "table_shape", "level_dim", "levels",
+                                    "device"])
+def test_hashgrid_kernels_refuse_what_they_do_not_take(change):
+    """The kernels' checks: float32, contiguous, x (N, 3), the table as the
+    configuration shapes it, a level_dim of 1, 2, 4 or 8, at most 32
+    levels, one device."""
+    x, table, _ = _inputs(5, 50)
+    x, table = torch.tensor(x), torch.tensor(table)
+    cfg = hashgrid.HashGridConfig(**CFG)
+    bad = {"dtype": lambda: (table.double(), x, cfg),
+           "contiguous": lambda: (table.transpose(0, 1).contiguous()
+                                  .transpose(0, 1), x, cfg),
+           "x_shape": lambda: (table, x[:, :2].contiguous(), cfg),
+           "table_shape": lambda: (table, x, cfg._replace(
+               log2_hashmap_size=11)),
+           "level_dim": lambda: (table[..., :1].repeat(1, 1, 3), x,
+                                 cfg._replace(level_dim=3)),
+           "levels": lambda: (table.repeat(9, 1, 1), x,
+                              cfg._replace(num_levels=36)),
+           "device": lambda: (table, x.to("meta"), cfg)}[change]()
+    hashgrid._check_inputs(table, x, cfg)
+    with pytest.raises(ValueError):
+        hashgrid._check_inputs(*bad)
 
 
 def test_init_hashgrid_range_and_seed():

@@ -116,6 +116,7 @@ def test_load_ply_reads_jax_ply(tmp_path):
         np.testing.assert_array_equal(
             value.detach().numpy(),
             np.asarray(state.params[name])[:N_POINTS], err_msg=name)
+        assert value.is_contiguous(), name
     assert model.max_sh_degree == 3 and model.exposure.shape == (3, 3, 4)
     assert torch.equal(model.exposure[2], torch.eye(3, 4))
 
